@@ -1,0 +1,141 @@
+"""EventNet: 2-head UNet predicting an event image from an intensity pair
+(counterpart of ``evennicer_slam_tpu/models/eventnet.py``).
+
+Shared encoder (6 -> 64 -> 128 -> 256 -> 512 -> 512 channels, maxpool downs),
+two bilinear-upsampling decoder heads — head 1 regresses per-pixel signed
+event counts (2 polarity channels), head 2 a sigmoid event-existence mask —
+and ``inference = events * mask_prob``.
+
+Public functions keep the JAX package's layout: activations NHWC, convolution
+weights HWIO. Inside, the convolutions go to ``torch.nn.functional.conv2d``
+in NCHW (a library convolution on both sides: the JAX package leaves them to
+XLA). BatchNorm runs in inference mode (affine with running stats). The
+network is frozen at SLAM time — gradients flow *through* it into the
+rendered input image.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from evennicer_slam_tpu_torch.utils.runtime import resolve_device
+
+BN_EPS = 1e-5
+
+# (name, in, mid, out) per DoubleConv; bilinear upsampling halves up-path channels
+_ENCODER = [
+    ("inc", 6, 64, 64),
+    ("down1", 64, 128, 128),
+    ("down2", 128, 256, 256),
+    ("down3", 256, 512, 512),
+    ("down4", 512, 512, 512),
+]
+_DECODER = [
+    ("up1", 1024, 512, 256),
+    ("up2", 512, 256, 128),
+    ("up3", 256, 128, 64),
+    ("up4", 128, 64, 64),
+]
+
+
+def _conv(x: torch.Tensor, w_hwio: torch.Tensor) -> torch.Tensor:
+    """'SAME' convolution of NCHW ``x`` with an HWIO weight (odd kernels)."""
+    return F.conv2d(x, w_hwio.permute(3, 2, 0, 1), padding=w_hwio.shape[0] // 2)
+
+
+def _bn(x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:
+    c = lambda v: v[None, :, None, None]
+    inv = torch.rsqrt(p["v"] + BN_EPS)
+    return (x - c(p["m"])) * c(inv) * c(p["g"]) + c(p["b"])
+
+
+def _double_conv(x, p):
+    x = torch.relu(_bn(_conv(x, p["w1"]), p["bn1"]))
+    return torch.relu(_bn(_conv(x, p["w2"]), p["bn2"]))
+
+
+def _up(x1, x2, p):
+    """Bilinear x2 upsample (align_corners=True), zero-pad to the skip's
+    size, concat [skip, upsampled], DoubleConv."""
+    up = F.interpolate(x1, scale_factor=2, mode="bilinear", align_corners=True)
+    dy, dx = x2.shape[2] - up.shape[2], x2.shape[3] - up.shape[3]
+    up = F.pad(up, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+    return _double_conv(torch.cat([x2, up], dim=1), p)
+
+
+def eventnet_forward(
+    params: Dict[str, Any], x: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [N, H, W, 6] image pair -> (events [N, H, W, 2], mask [N, H, W, 2]);
+    the mask head output is sigmoided."""
+    x = x.permute(0, 3, 1, 2)
+    x1 = _double_conv(x, params["inc"])
+    x2 = _double_conv(F.max_pool2d(x1, 2), params["down1"])
+    x3 = _double_conv(F.max_pool2d(x2, 2), params["down2"])
+    x4 = _double_conv(F.max_pool2d(x3, 2), params["down3"])
+    x5 = _double_conv(F.max_pool2d(x4, 2), params["down4"])
+
+    def head(h):
+        y = _up(x5, x4, params[f"up1_{h}"])
+        y = _up(y, x3, params[f"up2_{h}"])
+        y = _up(y, x2, params[f"up3_{h}"])
+        y = _up(y, x1, params[f"up4_{h}"])
+        oc = params[f"outc_{h}"]
+        return (_conv(y, oc["w"]) + oc["b"][None, :, None, None]).permute(0, 2, 3, 1)
+
+    events = head("1")
+    mask = torch.sigmoid(head("2"))
+    return events, mask
+
+
+def inference_event(
+    params: Dict[str, Any], img1: torch.Tensor, img2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Predicted event image for a (previous, current) intensity pair.
+
+    img1/img2: [H, W, 3] in [0, 1]. Returns (event [H, W, 2], mask
+    [1, H, W, 2]) — prediction = raw events x existence probability."""
+    pair = torch.cat([img1, img2], dim=-1)[None]
+    events, mask = eventnet_forward(params, pair)
+    mask_prob = mask[..., 1:2]
+    return (events * mask_prob)[0], mask
+
+
+def _param_names():
+    """Flattened parameter names of the checkpoint layout, e.g.
+    ``eventnet.inc.bn1.g``, ``eventnet.outc_1.w``."""
+    blocks = [n for n, *_ in _ENCODER]
+    for head in ("1", "2"):
+        blocks += [f"{n}_{head}" for n, *_ in _DECODER]
+    for blk in blocks:
+        for w, bn in (("w1", "bn1"), ("w2", "bn2")):
+            yield (blk, w)
+            for s in ("g", "b", "m", "v"):
+                yield (blk, bn, s)
+    for head in ("1", "2"):
+        yield (f"outc_{head}", "w")
+        yield (f"outc_{head}", "b")
+
+
+def load_eventnet_npz(path: str, device=None) -> Dict[str, Any]:
+    """Load an EventNet checkpoint written by the JAX package's
+    ``save_eventnet_npz`` (f32, or f16-quantized weights with f32 BatchNorm
+    statistics); parameters come back as f32 tensors on ``device``."""
+    device = resolve_device(device)
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    params: Dict[str, Any] = {}
+    for name in _param_names():
+        key = "eventnet." + ".".join(name)
+        arr = flat[key]
+        if arr.dtype == np.float16:
+            arr = arr.astype(np.float32)
+        node = params
+        for part in name[:-1]:
+            node = node.setdefault(part, {})
+        node[name[-1]] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    return params
