@@ -4,15 +4,25 @@
     python3 chip_smoke.py            # everything, as a check of a checkout
     python3 chip_smoke.py --quick    # build + kernel check only
 
-Builds the port's CUDA kernel from ``evennicer_slam_tpu_torch/csrc`` into
-``build/``, holds it against its plain PyTorch version on the card, then
-drives the port's main path at the full width of the shipped configuration
+Builds the port's two CUDA kernels (fused decode forward and backward) from
+``evennicer_slam_tpu_torch/csrc`` into ``build/``, side by side, holds each
+against its plain PyTorch version on the card, then drives the port's main
+paths at the full width of the shipped configuration
 (``configs/nice_slam.yaml``, Replica camera 680x1200, the bench scene's
-bound): ``tracking_loss`` scored for a few camera poses — the 0.15-scale
-render through the fused decode, EventNet from
-``pretrained/eventnet_mapdomain.npz``, the RGB-D and event losses — and one
-whole-image ``Renderer.render_img``. Scene grids and decoders are random,
-from a seed; the frame is made from a seed on the host.
+bound):
+  - ``tracking_loss`` scored for a few camera poses — the 0.15-scale render
+    through the fused decode, EventNet from
+    ``pretrained/eventnet_mapdomain.npz``, the RGB-D and event losses — and
+    one whole-image ``Renderer.render_img``;
+  - the pose gradient of that score through the kernels against the same
+    path through the plain versions;
+  - six frames of the synthetic scene (``data/synthetic.py``) tracked through
+    ``Tracker.track`` / ``end_of_window`` as the pipeline drives them: ten
+    Adam steps a frame, forward and backward through the kernels, with the
+    launches counted; one frame tracked again through the plain versions; one
+    frame tracked against a render of the map itself.
+Scene grids and decoders are random, from a seed, so nothing here says that
+tracking converges on a scene: that waits for the mapper.
 
 Every phase that fails ends the run with a non-zero exit code. Without a CUDA
 device the script exits non-zero and prints no result. Output, last three
@@ -21,6 +31,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -45,8 +56,16 @@ from evennicer_slam_tpu_torch.core.bounds import (  # noqa: E402
     normalize_3d_coordinate,
     ray_bound_exit,
 )
-from evennicer_slam_tpu_torch.core.quaternion import pose_matrix_from_tensor  # noqa: E402
-from evennicer_slam_tpu_torch.core.rays import get_rays, get_rays_rescale  # noqa: E402
+from evennicer_slam_tpu_torch.core.quaternion import (  # noqa: E402
+    pose_matrix_from_tensor,
+    tensor_from_pose_matrix,
+)
+from evennicer_slam_tpu_torch.core.rays import (  # noqa: E402
+    get_rays,
+    get_rays_rescale,
+    sample_pixels,
+)
+from evennicer_slam_tpu_torch.data.synthetic import synthetic_frames  # noqa: E402
 from evennicer_slam_tpu_torch.models.decoders import (  # noqa: E402
     init_nice_decoders,
     pack_grids_for_tracking,
@@ -62,7 +81,13 @@ from evennicer_slam_tpu_torch.render.renderer import (  # noqa: E402
     render_rays,
 )
 from evennicer_slam_tpu_torch.slam.camera import Camera  # noqa: E402
-from evennicer_slam_tpu_torch.slam.tracker import TrackerConfig, tracking_loss  # noqa: E402
+from evennicer_slam_tpu_torch.slam.tracker import (  # noqa: E402
+    Tracker,
+    TrackerConfig,
+    _prep_event_inputs,
+    track_frame,
+    tracking_loss,
+)
 from evennicer_slam_tpu_torch.utils.runtime import setup_torch  # noqa: E402
 
 SEED = 0
@@ -81,6 +106,14 @@ OUTLIER_FACTOR = 10.0
 # the composited 102x180 image: per-point differences average out along a
 # ray, but a flip in an occupancy near a surface moves that ray's weights
 IMG_ATOL = 2e-2
+# pose gradient (a 7-vector) through the kernels against the plain path
+GRAD_REL_TOL = 1e-2
+GRAD_COS_MIN = 0.999
+# one frame tracked through the kernels and through the plain versions: the
+# first iteration's event loss sees only the forward difference (relative)
+TRACK_FIRST_LOSS_RTOL = 1e-3
+N_TRACK_FRAMES = 7   # frame 0 seeds the window, 1..6 are tracked
+EVERY_FRAME = 5      # mapping cadence = RGB-D cadence of the bench workload
 N_SMALL = 1500
 N_MAIN = 102 * 180 * 48  # 881,280 points: one 0.15-scale tracking render
 
@@ -97,6 +130,33 @@ MLP_MACS = (2 * 93 * 32 + 4 * 32 * 32 + 5 * 32 * 32 + 32 * 1) \
     + (2 * 93 * 32 + 4 * 32 * 32 + 5 * 32 * 32 + 32 * 4)
 F32_MACS = 3 * 279 + 8 * 96
 BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16
+# the backward, per point. Bytes: point, fractions and rows in (rows counted
+# once), the cotangent in, three cotangents out. Operations: the recomputed
+# forward (without its heads' 6 x 32, which the backward does not need, but
+# counted: the difference is 0.4 %), then the reverse pass: per MLP two
+# embedding products, four hidden products and five feature products (the
+# fine MLP's only for its first 32 channels), all transposed, and the head.
+# The head's cotangent is f32; every other cotangent entering a transposed
+# product is a bf16 value (autograd rounds it on the way back through the
+# operand's cast, the kernel does the same), so those products are reckoned at
+# the bf16 tensor-core rate, which gives the lower, harder bound. The f32 work
+# is the forward's again (embedding 3x279 with the cosines' chain rule, corner
+# weights 8x96).
+BWD_HEAD_MACS = 32 * 1 + 32 * 1 + 32 * 4
+BWD_MLP_MACS = 3 * (2 * 93 * 32 + 4 * 32 * 32 + 5 * 32 * 32) + BWD_HEAD_MACS  # 45,696
+BWD_BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16 + 3 * 12
+# Backward kernel against autograd of the plain version. Both round every
+# transposed product's result to bf16, so a last-bit difference of two f32
+# sums can flip one rounding (one part in 256 of that cotangent), and a
+# pre-activation within an ulp of zero can flip a ReLU sign (that unit's
+# gradient all or nothing). Tolerance per output: |err| <= BWD_TOL * (rms of
+# the reference + |reference|); at the main-path size up to BWD_OUTLIER_SHARE
+# of the values may lie outside it and up to a tenth of that share outside ten
+# times it (sign flips); at N = 1,500 none may lie outside ten times it and
+# at most 2 values outside it.
+BWD_TOL = 5e-3
+BWD_OUTLIER_SHARE = 1e-4
+BWD_PLAIN_CHUNK = 220320  # autograd of the plain version walks N_MAIN in 4 chunks
 
 
 def say(msg):
@@ -134,6 +194,20 @@ def decode_bound(n, param_bytes):
     t_ops = n * (2 * MLP_MACS / PEAK_BF16_FLOPS + 2 * F32_MACS / PEAK_F32_FLOPS)
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by, 1e3 * t_bytes, 1e3 * t_ops
+
+
+def decode_bwd_bound(n, param_bytes):
+    """Least time in ms the card could take for the backward of ``n`` points,
+    as :func:`decode_bound`; also the operation time if the reverse products
+    had to run at the f32 rate (cotangents not taken as bf16 values)."""
+    t_bytes = (n * BWD_BYTES_PER_POINT + param_bytes) / PEAK_BYTES_S
+    bf16_macs = MLP_MACS + BWD_MLP_MACS - BWD_HEAD_MACS
+    f32_macs = 2 * F32_MACS + BWD_HEAD_MACS
+    t_ops = n * (2 * bf16_macs / PEAK_BF16_FLOPS + 2 * f32_macs / PEAK_F32_FLOPS)
+    t_ops_f32 = n * (2 * MLP_MACS / PEAK_BF16_FLOPS
+                     + 2 * (BWD_MLP_MACS + 2 * F32_MACS) / PEAK_F32_FLOPS)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, 1e3 * t_bytes, 1e3 * t_ops, 1e3 * t_ops_f32
 
 
 def make_scene(dev):
@@ -205,6 +279,59 @@ def check_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
     return res
 
 
+def check_bwd_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
+    """The backward kernel against autograd of the plain version on the same
+    inputs and a seeded cotangent; times by CUDA events."""
+    args = decode_inputs(packed, bound_t, n, dev, seed=SEED + n)
+    g = torch.from_numpy(np.random.default_rng(SEED + n + 1).standard_normal(
+        (n, 4)).astype(np.float32)).to(dev)
+    w16, f32 = fused_decode.pack_trio_weights(decoders)
+    chunk = BWD_PLAIN_CHUNK if n > BWD_PLAIN_CHUNK else None
+    got = fused_decode.launch_fused_decode_bwd(*args, w16, f32, g)
+    torch.cuda.synchronize()
+    want = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk)
+    torch.cuda.synchronize()
+    big = n > 10000
+    allowed = int(BWD_OUTLIER_SHARE * 3 * n) if big else 2
+    allowed_far = allowed // 10 if big else 0
+    res = {"n": n, "tol": BWD_TOL, "outside_allowed": allowed,
+           "outside_10x_allowed": allowed_far}
+    failed = []
+    for name, o, r in zip(("dp", "dfrac_m", "dfrac_f"), got, want):
+        if o.shape != (n, 3) or not bool(torch.isfinite(o).all()):
+            raise RuntimeError(f"backward kernel {name} at N={n}: bad shape or non-finite")
+        err = (o - r).abs()
+        tol = BWD_TOL * (r.pow(2).mean().sqrt() + r.abs())
+        n_bad, n_far = int((err > tol).sum()), int((err > 10 * tol).sum())
+        res[name] = {"max_abs_err": float(err.max()), "ref_rms": float(r.pow(2).mean().sqrt()),
+                     "rel_norm_err": float((o - r).norm() / r.norm()),
+                     "outside_tolerance": n_bad, "outside_10x_tolerance": n_far}
+        if n_bad > allowed or n_far > allowed_far:
+            failed.append(name)
+    # the same through autograd.Function, as the render path reaches it
+    leaves = [a.detach().clone().requires_grad_() for a in args[:3]]
+    out = fused_decode.fused_decode_packed(decoders, *leaves, *args[3:], weights=(w16, f32))
+    via = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    if not all(torch.equal(a, b) for a, b in zip(via, got)):
+        raise RuntimeError(f"_FusedDecode.backward differs from the bare launch at N={n}")
+    res["ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), iters)
+    res["kernel_only_ms"] = cuda_ms(
+        lambda: fused_decode.launch_fused_decode_bwd(*args, w16, f32, g), iters)
+    res["plain_ms"] = cuda_ms(
+        lambda: fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk),
+        plain_iters)
+    res["plain_chunks"] = 1 if chunk is None else -(-n // chunk)
+    param_bytes = w16.numel() * 2 + f32.numel() * 4
+    (res["bound_ms"], res["bound_by"], res["bound_bytes_ms"], res["bound_operations_ms"],
+     res["bound_operations_ms_if_f32_cotangents"]) = decode_bwd_bound(n, param_bytes)
+    res["max_abs_err"] = max(res[k]["max_abs_err"] for k in ("dp", "dfrac_m", "dfrac_f"))
+    say(f"backward kernel vs autograd of the plain version at N={n}: " + json.dumps(res))
+    if failed:
+        raise RuntimeError(
+            f"backward kernel disagrees with its plain version at N={n}: {failed}")
+    return res
+
+
 def make_frame(cam, bound_t, dev):
     """A Replica-shaped frame from a seed: the depth image is what the
     camera sees of a box 0.9 times the scene bound (so every surface lies
@@ -263,6 +390,224 @@ def main_path_inputs(cfg, bound_t, dev):
     )
 
 
+@contextlib.contextmanager
+def plain_decode():
+    """Send the decode of every render inside the block through the plain
+    PyTorch version instead of the kernels (autograd differentiates it)."""
+    def plain(decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim=32, weights=None):
+        return fused_decode.fused_decode_packed_plain(
+            decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim)
+
+    kernel_fn = fused_decode.fused_decode_packed
+    fused_decode.fused_decode_packed = plain
+    try:
+        yield
+    finally:
+        fused_decode.fused_decode_packed = kernel_fn
+
+
+def reset_launches():
+    fused_decode.fused_decode_packed.launches = 0
+    fused_decode.fused_decode_packed.bwd_launches = 0
+
+
+def launches():
+    return (fused_decode.fused_decode_packed.launches,
+            fused_decode.fused_decode_packed.bwd_launches)
+
+
+def check_pose_gradient(mp, decoders, packed, bound_t, dev):
+    """d total / d pose through the whole score, once through the kernels and
+    once through the plain versions, with the same pixel draws."""
+    tcfg, cam = mp.tcfg, mp.cam
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    ij = sample_pixels(gen, tcfg.pixels, tcfg.ignore_edge_h, cam.H - tcfg.ignore_edge_h,
+                       tcfg.ignore_edge_w, cam.W - tcfg.ignore_edge_w, device=dev)
+    pose = mp.true_pose + torch.tensor(
+        [0, 0.002, -0.001, 0.001, 0.01, -0.005, 0.008], device=dev)
+
+    def grad(rgbd):
+        x = pose.clone().requires_grad_()
+        total, _ = tracking_loss(
+            x, decoders, packed, mp.eventnet, bound_t, mp.color, mp.depth,
+            mp.gt_event_lo, mp.prev_color_lo, mp.gt_depth_lo_flat, mp.gt_mask_lo,
+            tcfg, cam, mp.settings, rgbd=rgbd, event=True, pixel_ij=ij)
+        (g,) = torch.autograd.grad(total, x)
+        torch.cuda.synchronize()
+        return g
+
+    out = {}
+    for rgbd in (False, True):
+        reset_launches()
+        g_k = grad(rgbd)
+        n_f, n_b = launches()
+        with plain_decode():
+            g_p = grad(rgbd)
+        rel = float((g_k - g_p).norm() / g_p.norm())
+        cos = float(torch.dot(g_k, g_p) / (g_k.norm() * g_p.norm()))
+        name = "rgbd+event" if rgbd else "event only"
+        say(f"pose gradient {name}: kernels {[f'{v:.4g}' for v in g_k.tolist()]} "
+            f"plain {[f'{v:.4g}' for v in g_p.tolist()]} relative difference {rel:.3e}, "
+            f"cosine {cos:.8f}; launches forward {n_f}, backward {n_b} "
+            f"(tolerance: relative {GRAD_REL_TOL}, cosine > {GRAD_COS_MIN})")
+        want = 2 if rgbd else 1
+        if not (bool(torch.isfinite(g_k).all()) and rel <= GRAD_REL_TOL
+                and cos > GRAD_COS_MIN and (n_f, n_b) == (want, want)):
+            raise RuntimeError(f"pose gradient through the kernels, {name}: disagrees")
+        out[name] = {"rel": rel, "cos": cos}
+    return out
+
+
+def upload_frames(cam, dev, n=N_TRACK_FRAMES):
+    """The first ``n`` frames of the synthetic Replica-event scene at full
+    size (host ray tracing), on the device."""
+    t0 = time.perf_counter()
+    frames = []
+    for f in synthetic_frames(n, cam.H, cam.W, fx=cam.fx, fy=cam.fy,
+                              bound=BOUND, traj_step=0.01):
+        frames.append(SimpleNamespace(
+            index=f.index, c2w=torch.from_numpy(f.c2w).to(dev),
+            color=torch.from_numpy(f.color).to(dev),
+            depth=torch.from_numpy(f.depth).to(dev),
+            event=torch.from_numpy(f.event).to(dev)))
+    say(f"synthetic scene: {len(frames)} frames {cam.H}x{cam.W} made on the host and "
+        f"uploaded in {time.perf_counter() - t0:.1f} s (set-up); events per frame "
+        f"{[int(f.event.sum()) for f in frames]}")
+    return frames
+
+
+def track_sequence(mp, frames, decoders, packed, dev, label):
+    """Frames 1..6 through ``Tracker.track`` / ``end_of_window`` as the
+    pipeline drives them: poses fed back from the tracker's own estimates,
+    the window boundary every ``EVERY_FRAME`` frames. One synchronise at the
+    end of each frame. Checks losses, poses and launch counts per frame."""
+    tcfg = mp.tcfg
+    tracker = Tracker(tcfg, mp.cam, mp.settings, BOUND, mp.eventnet, device=dev)
+    est = {0: frames[0].c2w}
+    tracker.reset_event_integration(frames[0].event.shape)
+    tracker.pre_gt_color = frames[0].color
+    tracker.end_of_window(0, frames[0].color, EVERY_FRAME)
+    records = []
+    for f in frames[1:]:
+        idx = f.index
+        rgbd = idx % tcfg.rgbd_every_frame == 0
+        torch.cuda.synchronize()
+        before = launches()
+        t0 = time.perf_counter()
+        c2w = tracker.track(idx, f.color, f.depth, f.event, est[idx - 1],
+                            est[idx - 2] if idx >= 2 else None, decoders, packed, seed=idx)
+        t_enq = time.perf_counter()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        est[idx] = c2w
+        tracker.end_of_window(idx, f.color, EVERY_FRAME)
+        n_f, n_b = (a - b for a, b in zip(launches(), before))
+        losses = tracker.last_losses
+        want_keys = {"event", "event_corr", "event_gt_energy", "mask"} | (
+            {"rgbd"} if rgbd else set())
+        rot = c2w[:3, :3]
+        ortho = float((rot.T @ rot - torch.eye(3, device=dev)).abs().max())
+        ok = (set(losses) == want_keys
+              and all(v.shape == (tcfg.iters,) and bool(torch.isfinite(v).all())
+                      for v in losses.values())
+              and c2w.shape == (4, 4) and bool(torch.isfinite(c2w).all())
+              and ortho <= 1e-4
+              and bool((c2w[3] == torch.tensor([0.0, 0, 0, 1], device=dev)).all()))
+        want_launches = tcfg.iters * (2 if rgbd else 1)
+        rec = {"frame": idx, "rgbd": rgbd, "wall_ms": 1e3 * (t_end - t0),
+               "enqueue_ms": 1e3 * (t_enq - t0), "fwd_launches": n_f, "bwd_launches": n_b,
+               "event_loss_first": float(losses["event"][0]),
+               "event_loss_min": float(losses["event"].min()),
+               "moved_mm": 1e3 * float((c2w[:3, 3] - est[idx - 1][:3, 3]).norm()),
+               "gt_moved_mm": 1e3 * float((f.c2w[:3, 3] - frames[idx - 1].c2w[:3, 3]).norm()),
+               "orthonormality": ortho}
+        say(f"track [{label}] " + json.dumps(rec))
+        if not ok:
+            raise RuntimeError(f"tracking frame {idx}: bad losses or pose: "
+                               f"{ {k: v.tolist() for k, v in losses.items()} } {c2w.tolist()}")
+        if (n_f, n_b) != (want_launches, want_launches):
+            raise RuntimeError(
+                f"tracking frame {idx}: {n_f} forward and {n_b} backward launches, "
+                f"expected {want_launches} each")
+        records.append(rec)
+    # the window state after six frames: handed off at frame 5, reset, frame 6 in
+    if tracker.consume_event_handoff(EVERY_FRAME) is None or \
+            tracker.consume_event_handoff(EVERY_FRAME) is not None:
+        raise RuntimeError("the event integral was not handed off once at the boundary")
+    if not torch.equal(tracker.gt_event_integrate, frames[6].event):
+        raise RuntimeError("the event integral was not reset at the boundary")
+    return records
+
+
+def track_kernel_vs_plain(mp, frames, decoders, packed, bound_t, dev):
+    """Frame 1 (event only) tracked twice from the same start, through the
+    kernels and through the plain versions."""
+    tcfg, f = mp.tcfg, frames[1]
+    _, ev_lo, prev_lo, depth_lo, mask_lo = _prep_event_inputs(
+        torch.zeros_like(f.event), f.event, frames[0].color, f.depth, mp.lo_hw,
+        tcfg.prev_resize)
+
+    def run():
+        out = track_frame(
+            frames[0].c2w, torch.eye(4, device=dev), decoders, packed, mp.eventnet,
+            bound_t, torch.Generator(device=dev).manual_seed(1), f.color, f.depth,
+            ev_lo, prev_lo, depth_lo, mask_lo, torch.zeros(7, device=dev), 1.0,
+            tcfg, mp.cam, mp.settings, rgbd=False, event=True, const_speed=False)
+        torch.cuda.synchronize()
+        return out
+
+    cam_k, _, loss_k, _ = run()
+    t0 = time.perf_counter()
+    with plain_decode():
+        cam_p, _, loss_p, _ = run()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    d_pose = float((cam_k - cam_p).abs().max())
+    first = float((loss_k["event"][0] - loss_p["event"][0]).abs() / loss_p["event"][0].abs())
+    hist = float(((loss_k["event"] - loss_p["event"]).abs() / loss_p["event"].abs()).max())
+    limit = 2 * tcfg.iters * tcfg.lr
+    say(f"one frame, kernels vs plain versions: best poses differ by {d_pose:.3e} "
+        f"(limit {limit:g} = 2 * iters * lr), event loss of the first iteration by "
+        f"{first:.3e} relative (tolerance {TRACK_FIRST_LOSS_RTOL}), of any iteration by "
+        f"{hist:.3e}; the plain path took {plain_ms:.0f} ms for the frame")
+    if not (d_pose <= limit and first <= TRACK_FIRST_LOSS_RTOL):
+        raise RuntimeError("tracking through the kernels disagrees with the plain path")
+    return {"pose_diff": d_pose, "first_loss_rel": first, "any_loss_rel": hist,
+            "plain_frame_ms": plain_ms}
+
+
+def self_consistent_frame(mp, renderer, decoders, packed, bound_t, dev):
+    """Reported, not asserted: render colour and depth of the (random) map at
+    a known pose, then track RGB-D only from that pose moved by a few
+    millimetres. The map is noise, so nothing is promised."""
+    pose = mp.true_pose / torch.cat([mp.true_pose[:4].norm().expand(4),
+                                     torch.ones(3, device=dev)])
+    c2w = torch.cat([pose_matrix_from_tensor(pose), torch.eye(4, device=dev)[3:4]])
+    with torch.no_grad():
+        depth, _, color = renderer.render_img(decoders, packed, c2w[:3], "color")
+    start = pose + torch.tensor([0, 0.001, -0.001, 0.0005, 0.004, -0.003, 0.005], device=dev)
+    start_c2w = torch.cat([pose_matrix_from_tensor(start), torch.eye(4, device=dev)[3:4]])
+    cfg_rgbd = mp.tcfg._replace(use_events=False)
+    lo = mp.lo_hw
+    best, _, losses, _ = track_frame(
+        start_c2w, torch.eye(4, device=dev), decoders, packed, {}, bound_t,
+        torch.Generator(device=dev).manual_seed(2), color, depth,
+        torch.zeros(*lo, 2, device=dev), torch.zeros(*lo, 3, device=dev),
+        torch.zeros(lo[0] * lo[1], device=dev), torch.zeros(*lo, device=dev),
+        torch.zeros(7, device=dev), 1.0, cfg_rgbd, mp.cam, mp.settings,
+        rgbd=True, event=False, const_speed=False)
+    torch.cuda.synchronize()
+    start7 = tensor_from_pose_matrix(start_c2w[:3])
+    res = {"t_err_before_mm": 1e3 * float((start7[4:] - pose[4:]).norm()),
+           "t_err_after_mm": 1e3 * float((best[4:] - pose[4:]).norm()),
+           "q_err_before": float((start7[:4] - pose[:4]).norm()),
+           "q_err_after": float((best[:4] / best[:4].norm() - pose[:4]).norm()),
+           "rgbd_loss_first": float(losses["rgbd"][0]),
+           "rgbd_loss_min": float(losses["rgbd"].min())}
+    say("self-consistent frame (map rendered at a known pose, tracked RGB-D only from "
+        "a start a few mm off; reported, not asserted): " + json.dumps(res))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -284,15 +629,21 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    cuda_build.build_all(["fused_decode", "fused_decode_bwd"])  # side by side
     lib = fused_decode.kernel_library()
+    lib_b = fused_decode.bwd_kernel_library()
     build_s = time.perf_counter() - t0
-    log = cuda_build.BUILD_LOG["fused_decode"]
-    say(f"built {log['lib']} in {build_s:.1f} s (set-up); tile "
-        f"{lib.fused_decode_tile()} points, {lib.fused_decode_smem_bytes()} B "
-        f"of shared memory per block")
-    for line in str(log["ptxas"]).splitlines():
-        if "registers" in line or "spill" in line or "warning" in line.lower():
-            say("  ptxas: " + line.strip())
+    say(f"built both kernels in {build_s:.1f} s (set-up)")
+    for name, tile, smem in (
+            ("fused_decode", lib.fused_decode_tile(), lib.fused_decode_smem_bytes()),
+            ("fused_decode_bwd", lib_b.fused_decode_bwd_tile(),
+             lib_b.fused_decode_bwd_smem_bytes())):
+        log = cuda_build.BUILD_LOG[name]
+        say(f"  {log['lib']}: {float(log['seconds']):.1f} s; tile {tile} points, "
+            f"{smem} B of shared memory per block")
+        for line in str(log["ptxas"]).splitlines():
+            if "registers" in line or "spill" in line or "warning" in line.lower():
+                say("    ptxas: " + line.strip())
 
     # ---- 3. the kernel against its plain version ---------------------------
     cfg, grids, decoders, packed = make_scene(dev)
@@ -301,7 +652,11 @@ def main():
         raise RuntimeError("the shipped decoder trio must be supported by the kernel")
     small = check_kernel(decoders, packed, bound_t, N_SMALL, dev, iters=20, plain_iters=5)
     main_res = check_kernel(decoders, packed, bound_t, N_MAIN, dev,
-                            iters=3 if opts.quick else 10, plain_iters=2)
+                            iters=3 if opts.quick else 5, plain_iters=2)
+    bwd_small = check_bwd_kernel(decoders, packed, bound_t, N_SMALL, dev,
+                                 iters=20, plain_iters=5)
+    bwd_main = check_bwd_kernel(decoders, packed, bound_t, N_MAIN, dev,
+                                iters=3 if opts.quick else 5, plain_iters=2)
     if opts.quick:
         say(f"quick check done in {time.perf_counter() - t_start:.1f} s")
         return
@@ -332,7 +687,7 @@ def main():
         return total, aux
 
     score(poses[0], True)  # warm-up: cuDNN picks its algorithms here
-    fused_decode.fused_decode_packed.launches = 0
+    reset_launches()
     results = []
     for rgbd in (False, True):
         for i, pose in enumerate(poses):
@@ -347,7 +702,7 @@ def main():
             results.append((rgbd, i, ms, vals))
             say(f"tracking_loss pose {i} {'rgbd+event' if rgbd else 'event only'}: "
                 f"{ms:.2f} ms  " + json.dumps(vals))
-    launches_main = fused_decode.fused_decode_packed.launches
+    launches_main = launches()[0]
     expected = len(poses) * 1 + len(poses) * 2
     say(f"fused decode launches on the main path: {launches_main} "
         f"(expected {expected}: 1 per event-only score, 2 per RGB-D + event score)")
@@ -372,12 +727,8 @@ def main():
         return d.reshape(lo_hw), c.reshape(*lo_hw, 3)
 
     d_k, c_k = lo_render()
-    kernel_fn = fused_decode.fused_decode_packed
-    fused_decode.fused_decode_packed = fused_decode.fused_decode_packed_plain
-    try:
+    with plain_decode():
         d_p, c_p = lo_render()
-    finally:
-        fused_decode.fused_decode_packed = kernel_fn
     img_err = float((c_k - c_p).abs().max())
     depth_err = float((d_k - d_p).abs().max())
     say(f"rendered {lo_hw[0]}x{lo_hw[1]} image, kernel path vs plain path: colour "
@@ -414,6 +765,39 @@ def main():
     if not ok_img or launches_img != n_chunks:
         raise RuntimeError("whole-image render failed")
 
+    # ---- 6. the pose gradient through the whole score -----------------------------
+    grad_res = check_pose_gradient(mp, decoders, packed, bound_t, dev)
+
+    # ---- 7. tracking at full width through Tracker.track --------------------------
+    frames = upload_frames(cam, dev)
+    track_sequence(mp, frames, decoders, packed, dev, "first pass, warm-up")
+    reset_launches()
+    track_recs = track_sequence(mp, frames, decoders, packed, dev, "second pass")
+    launches_track_fwd, launches_track_bwd = launches()
+    ev_frames = [r for r in track_recs if not r["rgbd"]]
+    rgbd_frames = [r for r in track_recs if r["rgbd"]]
+    iters = tcfg.iters
+    say(f"tracking, {iters} iterations a frame (forward + backward + Adam), one "
+        f"synchronise at the end of each frame: event only "
+        f"{min(r['wall_ms'] for r in ev_frames):.1f}-{max(r['wall_ms'] for r in ev_frames):.1f} "
+        f"ms a frame = {min(r['wall_ms'] for r in ev_frames) / iters:.2f} ms an iteration "
+        f"at best; RGB-D + event {rgbd_frames[0]['wall_ms']:.1f} ms a frame = "
+        f"{rgbd_frames[0]['wall_ms'] / iters:.2f} ms an iteration. The host had the frame "
+        f"enqueued after {min(r['enqueue_ms'] for r in ev_frames):.1f}-"
+        f"{max(r['enqueue_ms'] for r in ev_frames):.1f} ms (event only) and "
+        f"{rgbd_frames[0]['enqueue_ms']:.1f} ms (RGB-D + event): a float() or .item() "
+        f"inside the loop would make the host wait for the device in every iteration "
+        f"and give up that lead. Launches on the tracking path: forward "
+        f"{launches_track_fwd}, backward {launches_track_bwd}")
+    if launches_track_fwd != 7 * iters or launches_track_bwd != 7 * iters:
+        raise RuntimeError("the tracking path did not go through both kernels as expected")
+
+    # ---- 8. one frame through the kernels and through the plain versions ----------
+    kp_res = track_kernel_vs_plain(mp, frames, decoders, packed, bound_t, dev)
+
+    # ---- 9. one self-consistent frame (reported only) ----------------------------
+    self_res = self_consistent_frame(mp, renderer, decoders, packed, bound_t, dev)
+
     # ---- result ---------------------------------------------------------------
     ev_ms = [r[2] for r in results if not r[0]]
     rgbd_ms = [r[2] for r in results if r[0]]
@@ -425,7 +809,9 @@ def main():
         "route": "cuda",
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:177",
-        "launches": launches_main,
+        "launches": launches_main + launches_track_fwd,
+        "launches_scores": launches_main,
+        "launches_tracking": launches_track_fwd,
         "max_abs_err": max(main_res["max_abs_err"], small["max_abs_err"]),
         "ms": main_res["ms"],
         "plain_ms": main_res["plain_ms"],
@@ -436,6 +822,25 @@ def main():
         "kernel_only_ms": main_res["kernel_only_ms"],
         "launches_render_img": launches_img,
         "small": small,
+    }, {
+        "name": "fused_decode_bwd",
+        "route": "cuda",
+        "source": "evennicer_slam_tpu_torch/csrc/fused_decode_bwd.cu",
+        "replaces": "evennicer_slam_tpu/ops/fused_decode.py:188",
+        "launches": launches_track_bwd,
+        "max_abs_err": max(bwd_main["max_abs_err"], bwd_small["max_abs_err"]),
+        "ms": bwd_main["ms"],
+        "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"],
+        "bound_by": bwd_main["bound_by"],
+        "library_ms": None,
+        "n_points": N_MAIN,
+        "kernel_only_ms": bwd_main["kernel_only_ms"],
+        "main": {k: bwd_main[k] for k in ("dp", "dfrac_m", "dfrac_f")},
+        "small": bwd_small,
+        "pose_gradient_vs_plain": grad_res,
+        "tracked_frame_vs_plain": kp_res,
+        "self_consistent_frame": self_res,
     }]
     say(json.dumps({"kernels": kernels}))
     say(smi)

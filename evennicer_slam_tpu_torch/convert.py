@@ -68,3 +68,23 @@ def eventnet_from_numpy(params: Dict[str, Any], device=None) -> Dict[str, Any]:
     ``bn1``/``bn2`` (``g``, ``b``, ``m``, ``v``), heads ``outc_*`` with ``w``
     and ``b``. Layout unchanged: the port's forward takes HWIO weights."""
     return tree_from_numpy(params, device)
+
+
+def adam_state_from_numpy(m: Any, v: Any, t: Any, device=None):
+    """An Adam state of the JAX package (``AdamState(m, v, t)``, its leaves as
+    numpy arrays; ``t`` a scalar or a per-leaf tree) -> the port's
+    ``utils.optim.AdamState``: moments as float32, step counts as int32."""
+    from evennicer_slam_tpu_torch.utils.optim import AdamState
+
+    device = resolve_device(device)
+    m_t, v_t, t_t = (tree_from_numpy(x, device) for x in (m, v, t))
+
+    def as_int(x):
+        if isinstance(x, dict):
+            return {k: as_int(y) for k, y in x.items()}
+        if isinstance(x, list):
+            return [as_int(y) for y in x]
+        return x.to(torch.int32)
+
+    return AdamState(m_t, v_t, as_int(t_t))
+

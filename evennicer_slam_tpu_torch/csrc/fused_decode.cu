@@ -12,7 +12,9 @@
 //      feature injection and the skip [emb | h] into block 3,
 //   4. raw = (colour rgb, middle_occ + fine_occ).
 // The fine MLP's feature is [fine | middle]; the middle copy carries no
-// gradient in the reference, which is a statement about the backward only.
+// gradient, which is a statement about the backward only
+// (fused_decode_bwd.cu). The device functions both kernels run are in
+// fused_decode_common.cuh.
 //
 // Numerics (the contract the plain PyTorch version states too): both
 // operands of every MLP product are rounded to bf16 (round to nearest even),
@@ -60,9 +62,7 @@
 // rows with a producer warp so phase A overlaps phase B; two points per
 // thread to halve the weight unpacking.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_decode_common.cuh"
 
 // Points per tile = threads per block. 384 was the fastest of 128..448 on an
 // H100 (scripts/tune_fused_decode.py); 448 and up leave too few registers a
@@ -73,102 +73,17 @@
 
 namespace {
 
+using namespace fd;
+
 constexpr int TILE = FD_TILE;  // points per tile == threads per block
 constexpr int TP = TILE + 1;   // column stride in words (odd: no bank conflicts)
-constexpr int EMB = 93;
-constexpr int HID = 32;
 
-// bf16 weight layout of one MLP, in elements (every offset a multiple of 8,
-// so every weight row starts on a 16-byte boundary)
-constexpr int W_EMB0 = 0;               // lin_w[0]        [93][32]
-constexpr int W_EMB3 = EMB * HID;       // lin_w[3][:93]   [93][32]
-constexpr int W_HID = 2 * EMB * HID;    // lin_w[1], lin_w[2], lin_w[3][93:], lin_w[4]
-constexpr int W_FC = W_HID + 4 * HID * HID;  // fc_w[0..4]  [F][32] each
-constexpr int W_OUT_ROWS = HID * 4;     // out_w padded to [32][4]
-constexpr int mlp_w_size(int feat) { return W_FC + 5 * feat * HID + W_OUT_ROWS; }
-constexpr int W_OFF_MIDDLE = 0;
-constexpr int W_OFF_FINE = mlp_w_size(32);
-constexpr int W_OFF_COLOR = W_OFF_FINE + mlp_w_size(64);
-constexpr int W_TOTAL = W_OFF_COLOR + mlp_w_size(32);  // 51,008
-
-// f32 parameter layout of one MLP, in floats
-constexpr int F_B = 0;        // B [3][93], padded to 280
-constexpr int F_LINB = 280;   // lin_b [5][32]
-constexpr int F_FCB = 440;    // fc_b  [5][32]
-constexpr int F_OUTB = 600;   // out_b padded to 4
-constexpr int F_MLP = 604;
-constexpr int F_TOTAL = 3 * F_MLP;  // 1,812
-
-constexpr int FEAT_ROWS = 48;  // 96 feature channels as bf16 pairs
-constexpr int HS_ROWS = 16;    // 32 hidden units as bf16 pairs
-
-constexpr size_t SMEM_W = size_t(W_TOTAL) * 2;
-constexpr size_t SMEM_F = size_t(F_TOTAL) * 4;
 constexpr size_t SMEM_FEAT = size_t(FEAT_ROWS) * TP * 4;
 constexpr size_t SMEM_HS = size_t(HS_ROWS) * TP * 4;
 constexpr size_t SMEM_BYTES = SMEM_W + SMEM_F + SMEM_FEAT + SMEM_HS;
 
-static_assert(SMEM_W % 16 == 0 && SMEM_F % 16 == 0, "uint4 staging");
 static_assert(TILE % 32 == 0 && TILE >= 32 && TILE <= 1024, "tile size");
-static_assert(SMEM_BYTES <= 232448, "exceeds a block's shared memory");
-
-__device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
-
-__device__ __forceinline__ float bf16_round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-    return uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
-           (uint32_t(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
-}
-
-// acc[0..32) += a * row, row = 32 bf16 weights at one shared-memory address
-__device__ __forceinline__ void fma_row(float (&acc)[HID], float a, const uint4* row) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const uint4 v = row[q];
-        acc[8 * q + 0] = fmaf(a, bf_lo(v.x), acc[8 * q + 0]);
-        acc[8 * q + 1] = fmaf(a, bf_hi(v.x), acc[8 * q + 1]);
-        acc[8 * q + 2] = fmaf(a, bf_lo(v.y), acc[8 * q + 2]);
-        acc[8 * q + 3] = fmaf(a, bf_hi(v.y), acc[8 * q + 3]);
-        acc[8 * q + 4] = fmaf(a, bf_lo(v.z), acc[8 * q + 4]);
-        acc[8 * q + 5] = fmaf(a, bf_hi(v.z), acc[8 * q + 5]);
-        acc[8 * q + 6] = fmaf(a, bf_lo(v.w), acc[8 * q + 6]);
-        acc[8 * q + 7] = fmaf(a, bf_hi(v.w), acc[8 * q + 7]);
-    }
-}
-
-// acc += act @ W for 2*npairs activations kept as bf16 pairs in this thread's
-// shared-memory column (stride TP words); W is [2*npairs][32] bf16
-__device__ __forceinline__ void dense(float (&acc)[HID], const uint32_t* col, int npairs,
-                                      const __nv_bfloat16* w) {
-    const uint4* rows = reinterpret_cast<const uint4*>(w);
-#pragma unroll 2
-    for (int kk = 0; kk < npairs; ++kk) {
-        const uint32_t a = col[kk * TP];
-        fma_row(acc, bf_lo(a), rows + (2 * kk) * 4);
-        fma_row(acc, bf_hi(a), rows + (2 * kk + 1) * 4);
-    }
-}
-
-// the 8 trilinear corner weights, corner order (dz, dy, dx) lexicographic
-__device__ __forceinline__ void corner_weights(const float* __restrict__ frac, float (&w)[8]) {
-    const float fx = frac[0], fy = frac[1], fz = frac[2];
-#pragma unroll
-    for (int dz = 0; dz < 2; ++dz) {
-        const float wz = dz ? fz : __fsub_rn(1.0f, fz);
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-            const float wzy = __fmul_rn(wz, dy ? fy : __fsub_rn(1.0f, fy));
-#pragma unroll
-            for (int dx = 0; dx < 2; ++dx) {
-                w[dz * 4 + dy * 2 + dx] = __fmul_rn(wzy, dx ? fx : __fsub_rn(1.0f, fx));
-            }
-        }
-    }
-}
+static_assert(SMEM_BYTES <= SMEM_BLOCK_MAX, "exceeds a block's shared memory");
 
 __global__ void __launch_bounds__(TILE, 1)
 fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ frac_m,
@@ -177,60 +92,21 @@ fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f
                         const uint4* __restrict__ w_f32, float4* __restrict__ out,
                         long long n_points, int n_tiles) {
     extern __shared__ __align__(16) unsigned char smem[];
-    __nv_bfloat16* wsm = reinterpret_cast<__nv_bfloat16*>(smem);
-    float* fsm = reinterpret_cast<float*>(smem + SMEM_W);
+    const __nv_bfloat16* wsm = reinterpret_cast<const __nv_bfloat16*>(smem);
+    const float* fsm = reinterpret_cast<const float*>(smem + SMEM_W);
     uint32_t* feat = reinterpret_cast<uint32_t*>(smem + SMEM_W + SMEM_F);
     uint32_t* hs = reinterpret_cast<uint32_t*>(smem + SMEM_W + SMEM_F + SMEM_FEAT);
 
     const int tid = threadIdx.x;
 
-    // stage the trio's parameters once per block
-    {
-        uint4* dst = reinterpret_cast<uint4*>(smem);
-        constexpr int NW = int(SMEM_W / 16);
-        constexpr int NF = int(SMEM_F / 16);
-        for (int i = tid; i < NW; i += TILE) dst[i] = w_bf16[i];
-        for (int i = tid; i < NF; i += TILE) dst[NW + i] = w_f32[i];
-    }
+    stage_params<TILE>(smem, w_bf16, w_f32, tid);
     __syncthreads();
-
-    const int hl = tid & 15;         // lane within the half-warp
-    const int grp = tid >> 4;        // half-warp index
-    constexpr int NGRP = TILE / 16;
 
     for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
         const long long tile0 = (long long)tile * TILE;
 
         // ---- phase A: corner reduction, one point per half-warp ----------
-        for (int i = grp; i < TILE; i += NGRP) {
-            const long long n = tile0 + i;
-            if (n >= n_points) break;
-            float wm[8], wf[8];
-            corner_weights(frac_m + n * 3, wm);
-            corner_weights(frac_f + n * 3, wf);
-            const uint32_t* rm = rows_m + n * 128 + hl;   // [8][32] bf16 = [8][16] words
-            const uint32_t* rf = rows_f + n * 256 + hl;   // [8][64] bf16 = [8][32] words
-            uint32_t vm[8], vf[8], vc[8];
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                vm[k] = __ldg(rm + k * 16);
-                vf[k] = __ldg(rf + k * 32);
-                vc[k] = __ldg(rf + k * 32 + 16);
-            }
-            float m0 = 0.f, m1 = 0.f, f0 = 0.f, f1 = 0.f, c0 = 0.f, c1 = 0.f;
-#pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                m0 = __fadd_rn(m0, __fmul_rn(bf_lo(vm[k]), wm[k]));
-                m1 = __fadd_rn(m1, __fmul_rn(bf_hi(vm[k]), wm[k]));
-                f0 = __fadd_rn(f0, __fmul_rn(bf_lo(vf[k]), wf[k]));
-                f1 = __fadd_rn(f1, __fmul_rn(bf_hi(vf[k]), wf[k]));
-                c0 = __fadd_rn(c0, __fmul_rn(bf_lo(vc[k]), wf[k]));
-                c1 = __fadd_rn(c1, __fmul_rn(bf_hi(vc[k]), wf[k]));
-            }
-            feat[(hl)*TP + i] = pack2(m0, m1);        // middle channels 2hl, 2hl+1
-            feat[(16 + hl) * TP + i] = pack2(f0, f1);  // fine
-            feat[(32 + hl) * TP + i] = pack2(c0, c1);  // colour
-        }
+        reduce_corners<TILE, TP>(feat, frac_m, frac_f, rows_m, rows_f, tile0, n_points, tid);
         __syncthreads();
 
         // ---- phase B: the three MLPs, one point per thread ----------------
@@ -242,80 +118,27 @@ fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f
 
 #pragma unroll 1
             for (int m = 0; m < 3; ++m) {
-                // m: 0 middle (feature middle), 1 fine ([fine | middle]), 2 colour
-                const __nv_bfloat16* W =
-                    wsm + (m == 0 ? W_OFF_MIDDLE : (m == 1 ? W_OFF_FINE : W_OFF_COLOR));
-                const float* F = fsm + m * F_MLP;
-                const uint32_t* feat_a = feat + (m * 16) * TP + tid;
-                const uint32_t* feat_b = feat + tid;  // middle, second half of the fine feature
-                const int pairs_b = (m == 1) ? 16 : 0;
-                const int fc_stride = (m == 1) ? 64 * HID : 32 * HID;
-
-                float acc[HID], acc3[HID];
-#pragma unroll
-                for (int j = 0; j < HID; ++j) { acc[j] = 0.f; acc3[j] = 0.f; }
-
-                // Fourier embedding, consumed at once by block 0 and by the
-                // skip half of block 3
-                {
-                    const uint4* w0 = reinterpret_cast<const uint4*>(W + W_EMB0);
-                    const uint4* w3 = reinterpret_cast<const uint4*>(W + W_EMB3);
-                    const float* B = F + F_B;
-#pragma unroll 3
-                    for (int k = 0; k < EMB; ++k) {
-                        const float arg = __fadd_rn(
-                            __fadd_rn(__fmul_rn(px, B[k]), __fmul_rn(py, B[EMB + k])),
-                            __fmul_rn(pz, B[2 * EMB + k]));
-                        const float e = bf16_round(sinf(arg));
-                        fma_row(acc, e, w0 + k * 4);
-                        fma_row(acc3, e, w3 + k * 4);
-                    }
-                }
-
-#pragma unroll 1
-                for (int blk = 0; blk < 5; ++blk) {
-                    if (blk > 0) {
-#pragma unroll
-                        for (int j = 0; j < HID; ++j) acc[j] = (blk == 3) ? acc3[j] : 0.f;
-                        dense(acc, hcol, HS_ROWS, W + W_HID + (blk - 1) * HID * HID);
-                    }
-                    const float* lb = F + F_LINB + blk * HID;
-#pragma unroll
-                    for (int j = 0; j < HID; ++j) acc[j] = fmaxf(acc[j] + lb[j], 0.f);
-
-                    // feature injection: h = h + feat @ fc_w + fc_b
-                    float inj[HID];
-#pragma unroll
-                    for (int j = 0; j < HID; ++j) inj[j] = 0.f;
-                    const __nv_bfloat16* wfc = W + W_FC + blk * fc_stride;
-                    dense(inj, feat_a, 16, wfc);
-                    dense(inj, feat_b, pairs_b, wfc + 32 * HID);
-                    const float* fb = F + F_FCB + blk * HID;
-#pragma unroll
-                    for (int j = 0; j < HID; ++j) acc[j] = (acc[j] + inj[j]) + fb[j];
-
-                    if (blk < 4) {
-#pragma unroll
-                        for (int jj = 0; jj < HS_ROWS; ++jj)
-                            hcol[jj * TP] = pack2(acc[2 * jj], acc[2 * jj + 1]);
-                    }
-                }
+                const MlpView v = mlp_view<TP>(m, wsm, fsm, feat, tid);
+                float acc[HID];
+                uint32_t unused[5];
+                mlp_hidden<TP, false>(v, px, py, pz, hcol, acc, unused);
 
                 // head: [32] -> 4 (columns past the MLP's own are zero padding)
                 float o[4] = {0.f, 0.f, 0.f, 0.f};
                 {
-                    const uint2* wo = reinterpret_cast<const uint2*>(W + W_FC + 5 * fc_stride);
+                    const uint2* wo =
+                        reinterpret_cast<const uint2*>(v.W + W_FC + 5 * v.fc_stride);
 #pragma unroll
                     for (int k = 0; k < HID; ++k) {
                         const float a = bf16_round(acc[k]);
-                        const uint2 v = wo[k];
-                        o[0] = fmaf(a, bf_lo(v.x), o[0]);
-                        o[1] = fmaf(a, bf_hi(v.x), o[1]);
-                        o[2] = fmaf(a, bf_lo(v.y), o[2]);
-                        o[3] = fmaf(a, bf_hi(v.y), o[3]);
+                        const uint2 w = wo[k];
+                        o[0] = fmaf(a, bf_lo(w.x), o[0]);
+                        o[1] = fmaf(a, bf_hi(w.x), o[1]);
+                        o[2] = fmaf(a, bf_lo(w.y), o[2]);
+                        o[3] = fmaf(a, bf_hi(w.y), o[3]);
                     }
                 }
-                const float* ob = F + F_OUTB;
+                const float* ob = v.F + F_OUTB;
                 if (m == 0) {
                     res[3] = o[0] + ob[0];
                 } else if (m == 1) {

@@ -305,6 +305,27 @@ def pack_grids_for_tracking(grids: Dict[str, torch.Tensor]) -> Dict[str, torch.T
     return out
 
 
+TRIO_WEIGHTS = "trio_weights"
+
+
+def pack_decoders_for_tracking(
+    decoders: Dict[str, Any], grids: Dict[str, Any]
+) -> Dict[str, Any]:
+    """The snapshot ``grids`` with the decoder trio's weights in the fused
+    decode kernels' two buffers beside the packed grids (key
+    ``TRIO_WEIGHTS``), so a frame's decodes, forward and backward, pack them
+    once instead of once per call. The decoders are frozen while a frame is
+    tracked; a caller that changes them packs again. Left out where the
+    kernels are not used: tensors on the CPU, or a trio they do not cover."""
+    from evennicer_slam_tpu_torch.ops import fused_decode
+
+    out = dict(grids)
+    out.pop(TRIO_WEIGHTS, None)
+    if fused_decode.supports(decoders) and decoders["middle"]["B"].device.type == "cuda":
+        out[TRIO_WEIGHTS] = fused_decode.pack_trio_weights(decoders)
+    return out
+
+
 def nice_forward_packed(
     decoders: Dict[str, Any],
     grids: Dict[str, torch.Tensor],
@@ -317,9 +338,11 @@ def nice_forward_packed(
 
     For the standard decoder trio (``fused_decode.supports``) the corner
     reduction and all three MLPs run as the fused decode
-    (ops/fused_decode.py): one CUDA kernel for tensors on the card, its plain
-    PyTorch version for tensors on the CPU. Any other trio runs the same
-    arithmetic as separate PyTorch ops."""
+    (ops/fused_decode.py): one CUDA kernel forward and one backward for
+    tensors on the card, the plain PyTorch version for tensors on the CPU.
+    Any other trio runs the same arithmetic as separate PyTorch ops. Where
+    ``grids`` carries the trio's packed weights
+    (:func:`pack_decoders_for_tracking`) the kernels take them from there."""
     from evennicer_slam_tpu_torch.ops import fused_decode
 
     if "fc_packed" not in grids:
@@ -331,7 +354,8 @@ def nice_forward_packed(
         rows_f, frac_f = packed_rows_and_frac(grids["fc_packed"], p_nor)
         c_dim = grids["middle_packed"].shape[-1] // 8
         return fused_decode.fused_decode_packed(
-            decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim=c_dim
+            decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim=c_dim,
+            weights=grids.get(TRIO_WEIGHTS),
         )
     middle_feat = sample_packed_trilinear(grids["middle_packed"], p_nor)
     fc_feat = sample_packed_trilinear(grids["fc_packed"], p_nor)

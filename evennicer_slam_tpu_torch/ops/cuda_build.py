@@ -1,10 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 Each kernel is one source under ``evennicer_slam_tpu_torch/csrc/`` with a
-plain C interface. It is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library under ``build/`` at the root of the checkout (git-ignored) the first
-time it is asked for, and loaded with ``ctypes``. Importing this module needs
-neither ``nvcc`` nor a GPU; only :func:`load_kernel_library` does.
+plain C interface (shared device code in ``*.cuh`` headers beside it). It is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library under ``build/``
+at the root of the checkout (git-ignored) the first time it is asked for, and
+loaded with ``ctypes``. The library's name carries a digest of the source,
+of every header of ``csrc/`` it includes and of the flags, so a change in any
+of them builds anew. Importing this module needs neither ``nvcc`` nor a GPU;
+only :func:`load_kernel_library` does.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -52,16 +56,42 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and, recursively, every file it includes with
+    ``#include "..."`` (resolved beside the including file), in a fixed order."""
+    seen, todo = [], [source_path(name)]
+    while todo:
+        path = os.path.normpath(todo.pop())
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                todo.append(os.path.join(os.path.dirname(path), inc.decode()))
+    return [seen[0], *sorted(seen[1:])]
+
+
+def source_digest(name: str, extra_flags: Sequence[str] = ()) -> str:
+    """Digest of everything the library is built from: the source, the
+    headers it includes and the compiler flags."""
+    h = hashlib.sha1()
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
+    return h.hexdigest()[:12]
+
+
 def start_build(name: str, extra_flags: Sequence[str] = ()) -> dict:
     """Start ``nvcc`` for ``csrc/<name>.cu`` without waiting, so several
     sources can compile side by side. Returns a handle for
     :func:`finish_build`; no compiler is started when an up-to-date library
-    (same source, same flags) already exists."""
+    (same source and headers, same flags) already exists."""
     src = source_path(name)
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(
-            f.read() + " ".join((*NVCC_FLAGS, *extra_flags)).encode()
-        ).hexdigest()[:12]
+    digest = source_digest(name, extra_flags)
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     handle = {"name": name, "lib": lib, "proc": None}
@@ -99,6 +129,13 @@ def finish_build(handle: dict) -> str:
         "ptxas": out,
     }
     return handle["lib"]
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Build several kernels side by side (one ``nvcc`` each, all started
+    together) and wait for all of them."""
+    for handle in [start_build(n) for n in names]:
+        finish_build(handle)
 
 
 def load_kernel_library(name: str, extra_flags: Sequence[str] = ()) -> ctypes.CDLL:

@@ -1,13 +1,19 @@
-"""Fused colour-stage NICE decode for tracking: one CUDA kernel on the card,
-its plain PyTorch version beside it (counterpart of
-``evennicer_slam_tpu/ops/fused_decode.py``).
+"""Fused colour-stage NICE decode for tracking: two CUDA kernels on the card
+(forward and backward), their plain PyTorch versions beside them (counterpart
+of ``evennicer_slam_tpu/ops/fused_decode.py``).
 
-The kernel (``csrc/fused_decode.cu``) replaces the TPU Pallas kernel
+The forward kernel (``csrc/fused_decode.cu``) replaces the TPU Pallas kernel
 ``_fwd_kernel`` of the JAX package. For N query points it takes the points,
 the two trilinear fraction triples and the two gathered packed-corner rows
 (ops/grid_sample.py) and returns raw ``[N, 4]`` = (colour rgb, middle + fine
 occupancy): corner reduction, three Fourier embeddings and three five-block
 MLPs with no activation written to device memory.
+
+The backward kernel (``csrc/fused_decode_bwd.cu``) replaces ``_bwd_kernel``:
+it recomputes the forward per point and pulls a cotangent ``g [N, 4]`` back
+to the points and the two fraction triples. Rows and decoder weights are
+frozen. Its plain version is autograd of the forward's plain version
+(:func:`fused_decode_bwd_plain`); its source says what bounds it.
 
 What bounds it on an H100, per point: 1,536 B of rows + 36 B of point and
 fractions in, 16 B out, against 101,632 FLOP of non-zero MLP work (50,816
@@ -20,20 +26,22 @@ its source lists what comes next. The TPU kernel's block-diagonal stacking
 of the three MLPs (``build_batched_params``) is not ported: it exists to fill
 a 128x128 matrix unit and triples the weights with zeros.
 
-Numerics, identical in the kernel and the plain version: operands of every
+Numerics, identical in the kernels and the plain versions: operands of every
 MLP product rounded to bf16, f32 accumulation; embedding product, sine and
-corner reduction in f32.
-
-The backward kernel (``_bwd_kernel`` in the JAX package) is not ported yet:
-on CUDA tensors the result cannot be differentiated; the plain version can.
+corner reduction in f32. In the backward the rounding of an operand is the
+identity, but autograd casts the cotangent of each rounded activation back
+through bf16 (the backward of a dtype cast is the cast back), so every
+transposed product's result is rounded to bf16; the backward kernel does the
+same.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 C_DIM = 32
 HIDDEN = 32
@@ -142,8 +150,34 @@ def fused_decode_packed_plain(
     return torch.cat([raw[:, :3], occ[:, None]], dim=-1)
 
 
+def fused_decode_bwd_plain(
+    decoders: Dict[str, Any],
+    p: torch.Tensor,
+    frac_m: torch.Tensor,
+    frac_f: torch.Tensor,
+    rows_m: torch.Tensor,
+    rows_f: torch.Tensor,
+    g: torch.Tensor,
+    chunk: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward in plain PyTorch ops, on any device: autograd of
+    :func:`fused_decode_packed_plain` for the cotangent ``g [N, 4]``. Returns
+    ``(dp, dfrac_m, dfrac_f)``, each ``[N, 3]``. ``chunk`` walks the points
+    that many at a time (the result is the same: points are independent)."""
+    n = p.shape[0]
+    step = n if not chunk else chunk
+    outs = []
+    for i in range(0, max(n, 1), max(step, 1)):
+        sl = slice(i, i + step)
+        leaves = [x[sl].detach().requires_grad_() for x in (p, frac_m, frac_f)]
+        with torch.enable_grad():
+            raw = fused_decode_packed_plain(decoders, *leaves, rows_m[sl], rows_f[sl])
+        outs.append(torch.autograd.grad(raw, leaves, g[sl]))
+    return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernel and its wrapper
+# the CUDA kernels and their wrappers
 # ---------------------------------------------------------------------------
 
 def pack_trio_weights(decoders: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -183,11 +217,32 @@ def declare_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def kernel_library() -> ctypes.CDLL:
-    """The compiled kernel (built from ``csrc/fused_decode.cu`` on first use,
-    loaded once per process) with its C signatures declared."""
+    """The compiled forward kernel (built from ``csrc/fused_decode.cu`` on
+    first use, loaded once per process) with its C signatures declared."""
     from evennicer_slam_tpu_torch.ops.cuda_build import load_kernel_library
 
     return declare_signatures(load_kernel_library("fused_decode"))
+
+
+def declare_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from
+    ``csrc/fused_decode_bwd.cu``."""
+    vp = ctypes.c_void_p
+    lib.fused_decode_bwd.argtypes = [vp] * 11 + [ctypes.c_longlong, vp]
+    lib.fused_decode_bwd.restype = ctypes.c_int
+    for fn in (lib.fused_decode_bwd_w_bf16_elems, lib.fused_decode_bwd_w_f32_elems,
+               lib.fused_decode_bwd_tile, lib.fused_decode_bwd_smem_bytes):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bwd_kernel_library() -> ctypes.CDLL:
+    """The compiled backward kernel (``csrc/fused_decode_bwd.cu``), built on
+    first use and loaded once per process."""
+    from evennicer_slam_tpu_torch.ops.cuda_build import load_kernel_library
+
+    return declare_bwd_signatures(load_kernel_library("fused_decode_bwd"))
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -238,14 +293,65 @@ def launch_fused_decode_fwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32,
     return out
 
 
+def launch_fused_decode_bwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32, g,
+                            lib: ctypes.CDLL = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Check the arguments, launch the backward kernel on the current stream,
+    count the launch. ``g`` is the cotangent of raw, [N, 4] f32. Returns
+    ``(dp, dfrac_m, dfrac_f)``, each [N, 3] f32. No synchronisation."""
+    dev = p.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused decode kernel needs CUDA tensors, got {dev}")
+    n = p.shape[0]
+    if lib is None:
+        lib = bwd_kernel_library()
+    _check("p", p, torch.float32, (n, 3), dev)
+    _check("frac_m", frac_m, torch.float32, (n, 3), dev)
+    _check("frac_f", frac_f, torch.float32, (n, 3), dev)
+    _check("rows_m", rows_m, torch.bfloat16, (n, 8 * C_DIM), dev)
+    _check("rows_f", rows_f, torch.bfloat16, (n, 16 * C_DIM), dev)
+    _check("w16", w16, torch.bfloat16, (lib.fused_decode_bwd_w_bf16_elems(),), dev)
+    _check("f32", f32, torch.float32, (lib.fused_decode_bwd_w_f32_elems(),), dev)
+    _check("g", g, torch.float32, (n, 4), dev)
+    dp, dfrac_m, dfrac_f = (
+        torch.empty((n, 3), dtype=torch.float32, device=dev) for _ in range(3))
+    if n == 0:
+        return dp, dfrac_m, dfrac_f
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_decode_bwd(
+            p.data_ptr(), frac_m.data_ptr(), frac_f.data_ptr(),
+            rows_m.data_ptr(), rows_f.data_ptr(), w16.data_ptr(),
+            f32.data_ptr(), g.data_ptr(), dp.data_ptr(), dfrac_m.data_ptr(),
+            dfrac_f.data_ptr(), n, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_decode_bwd: CUDA error {err} at launch")
+    fused_decode_packed.bwd_launches += 1
+    return dp, dfrac_m, dfrac_f
+
+
 class _FusedDecode(torch.autograd.Function):
+    """Forward and backward are one kernel launch each; rows and the packed
+    weights are data (no gradient)."""
+
     @staticmethod
     def forward(ctx, p, frac_m, frac_f, rows_m, rows_f, w16, f32):
+        ctx.save_for_backward(p, frac_m, frac_f, rows_m, rows_f, w16, f32)
         return launch_fused_decode_fwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_out):
-        raise NotImplementedError("fused decode backward kernel: next slice")
+        need = ctx.needs_input_grad[:3]
+        if not any(need):
+            return (None,) * 7
+        # the cotangent may arrive expanded or strided
+        g = grad_out.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
+        grads = launch_fused_decode_bwd(*ctx.saved_tensors, g)
+        return (*(d if w else None for d, w in zip(grads, need)), None, None, None, None)
 
 
 def fused_decode_packed(
@@ -256,14 +362,19 @@ def fused_decode_packed(
     rows_m: torch.Tensor,
     rows_f: torch.Tensor,
     c_dim: int = C_DIM,
+    weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Fused decode of N points. p/frac [N, 3] f32; rows [N, 8c] bf16.
-    Returns raw [N, 4]; rows and decoder weights are frozen by construction.
+    Returns raw [N, 4], differentiable wrt p and the fractions; rows and
+    decoder weights are frozen by construction.
 
-    Tensors on the CPU go through :func:`fused_decode_packed_plain`. Tensors
-    on a CUDA device go through the kernel, or the call raises; the kernel's
-    result cannot be differentiated yet. ``fused_decode_packed.launches``
-    counts kernel launches."""
+    Tensors on the CPU go through :func:`fused_decode_packed_plain` (and
+    autograd). Tensors on a CUDA device go through the kernels, forward and
+    backward, or the call raises. ``weights`` are the trio's two packed
+    buffers (:func:`pack_trio_weights`) where the caller has packed them
+    already, as the tracker does once per frame; without them they are packed
+    here. ``fused_decode_packed.launches`` counts launches of the forward
+    kernel, ``fused_decode_packed.bwd_launches`` of the backward kernel."""
     if p.device.type == "cpu":
         return fused_decode_packed_plain(
             decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim)
@@ -272,10 +383,11 @@ def fused_decode_packed(
             "the fused decode kernel takes the standard NICE trio only "
             f"(c_dim {C_DIM}, Fourier embedding, five width-{HIDDEN} blocks)"
         )
-    w16, f32 = pack_trio_weights(decoders)
+    w16, f32 = weights if weights is not None else pack_trio_weights(decoders)
     return _FusedDecode.apply(
         p, frac_m, frac_f, rows_m.detach(), rows_f.detach(), w16, f32,
     )
 
 
 fused_decode_packed.launches = 0
+fused_decode_packed.bwd_launches = 0

@@ -7,8 +7,9 @@
 - whole-image rendering walks the rays in chunks so a full-resolution image
   fits on the card; the port runs eagerly, so the last chunk is simply
   shorter (no padding to a fixed chunk),
-- everything is differentiable wrt pose / grids / decoder params, except
-  through the fused decode kernel, whose backward is not ported yet.
+- everything is differentiable wrt pose / grids / decoder params; through
+  the fused decode (tracking) wrt the pose only, its rows and weights being
+  frozen.
 
 ``regulation_sigma`` (iMAP*) is not ported yet.
 """

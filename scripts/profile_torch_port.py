@@ -3,9 +3,10 @@
 
     python3 scripts/profile_torch_port.py [--out build/profile_torch_port.txt]
 
-Builds the same full-width scene and frame as ``chip_smoke.py`` (it imports
-them from there), then for ``tracking_loss`` (event only, and RGB-D + event)
-and for one ``render_img``:
+Builds the same full-width scene and frames as ``chip_smoke.py`` (it imports
+them from there), then for ``tracking_loss`` (event only, and RGB-D + event),
+for one tracked frame (``track_frame``: ten iterations of forward, backward
+and Adam; event only, and RGB-D + event) and for one ``render_img``:
   - times the call on the host clock around ``torch.cuda.synchronize()``,
   - traces it with ``torch.profiler`` and prints device time by kernel name,
     the sum of device time and its share of the wall time (the rest is the
@@ -84,7 +85,7 @@ def main():
         torch.backends.cudnn.benchmark = opts.cudnn_benchmark == "on"
     say(f"cudnn.benchmark={torch.backends.cudnn.benchmark}, "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    cs.fused_decode.kernel_library()
+    cs.cuda_build.build_all(["fused_decode", "fused_decode_bwd"])
     cfg, grids, decoders, packed = cs.make_scene(dev)
     bound_t = torch.from_numpy(cs.BOUND).to(dev)
     mp = cs.main_path_inputs(cfg, bound_t, dev)
@@ -110,9 +111,26 @@ def main():
         with torch.no_grad():
             return inference_event(mp.eventnet, mp.prev_color_lo, mp.prev_color_lo)
 
+    # one frame of the synthetic scene, tracked from the previous frame's pose
+    frames = cs.upload_frames(cam, dev, n=2)
+    f = frames[1]
+    _, ev_lo, prev_lo, depth_lo, mask_lo = cs._prep_event_inputs(
+        torch.zeros_like(f.event), f.event, frames[0].color, f.depth, mp.lo_hw,
+        mp.tcfg.prev_resize)
+    track_gen = torch.Generator(device=dev).manual_seed(1)
+
+    def track(rgbd):
+        return cs.track_frame(
+            frames[0].c2w, torch.eye(4, device=dev), decoders, packed, mp.eventnet, bound_t,
+            track_gen, f.color, f.depth, ev_lo, prev_lo, depth_lo, mask_lo,
+            torch.zeros(7, device=dev), 1.0, mp.tcfg, cam, settings, rgbd=rgbd, event=True,
+            const_speed=False)
+
     for name, fn, iters in (
         ("tracking_loss, event only", lambda: score(False), opts.iters),
         ("tracking_loss, RGB-D + event", lambda: score(True), opts.iters),
+        (f"track_frame, event only ({mp.tcfg.iters} iterations)", lambda: track(False), 2),
+        (f"track_frame, RGB-D + event ({mp.tcfg.iters} iterations)", lambda: track(True), 2),
         ("EventNet inference_event 102x180 alone", eventnet_only, opts.iters),
         ("render_img 680x1200", render, 2),
     ):

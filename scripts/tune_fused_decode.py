@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Time variants of the fused decode kernel on one NVIDIA GPU.
+"""Time variants of the fused decode kernels on one NVIDIA GPU.
 
     python3 scripts/tune_fused_decode.py [--tiles 128 192 256 320 384 448]
+    python3 scripts/tune_fused_decode.py --backward [--tiles 64 96 128 160]
 
-Builds ``evennicer_slam_tpu_torch/csrc/fused_decode.cu`` once per tile size
-(``-DFD_TILE=<n>``: points per tile = threads per block; all builds started
-together), checks each variant against the plain PyTorch version at
+Builds ``evennicer_slam_tpu_torch/csrc/fused_decode.cu`` (or, with
+``--backward``, ``fused_decode_bwd.cu``) once per tile size (``-DFD_TILE=<n>``
+/ ``-DFD_BWD_TILE=<n>``: points per tile = threads per block; all builds
+started together), checks each variant against the plain PyTorch version at
 N = 881,280 and times the kernel alone with CUDA events, in two rounds so the
-spread shows. Prints registers and spills from ptxas beside each time.
+spread shows. Prints registers and spills from ptxas beside each time. A tile
+that does not fit a block's shared memory fails its ``static_assert`` and is
+reported as such.
 """
 
 import argparse
@@ -24,26 +28,53 @@ from evennicer_slam_tpu_torch.ops import cuda_build, fused_decode  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--tiles", type=int, nargs="+", default=[128, 192, 256, 320, 384, 448])
+    ap.add_argument("--backward", action="store_true",
+                    help="tune the backward kernel (default tiles 64 96 128 160)")
+    ap.add_argument("--tiles", type=int, nargs="+", default=None)
     ap.add_argument("--iters", type=int, default=10)
     opts = ap.parse_args()
+    if opts.tiles is None:
+        opts.tiles = [64, 96, 128, 160] if opts.backward else [128, 192, 256, 320, 384, 448]
+    name = "fused_decode_bwd" if opts.backward else "fused_decode"
+    macro = "FD_BWD_TILE" if opts.backward else "FD_TILE"
+    declare = (fused_decode.declare_bwd_signatures if opts.backward
+               else fused_decode.declare_signatures)
     dev = torch.device("cuda")
     print(f"device: {cs.nvidia_smi_line()}", flush=True)
     cs.setup_torch(verbose=False)
-    flags = {t: (f"-DFD_TILE={t}",) for t in opts.tiles}
-    handles = {t: cuda_build.start_build("fused_decode", f) for t, f in flags.items()}
+    flags = {t: (f"-D{macro}={t}",) for t in opts.tiles}
+    handles = {t: cuda_build.start_build(name, f) for t, f in flags.items()}
     libs, logs = {}, {}
     for t, h in handles.items():
-        cuda_build.finish_build(h)
-        logs[t] = [ln.strip() for ln in str(cuda_build.BUILD_LOG["fused_decode"]["ptxas"])
+        try:
+            cuda_build.finish_build(h)
+        except RuntimeError as e:
+            print(f"{macro}={t}: does not build: "
+                  + next((ln for ln in str(e).splitlines() if "error" in ln), str(e)[:200]),
+                  flush=True)
+            opts.tiles = [x for x in opts.tiles if x != t]
+            continue
+        logs[t] = [ln.strip() for ln in str(cuda_build.BUILD_LOG[name]["ptxas"])
                    .splitlines() if "registers" in ln or "spill" in ln]
-        libs[t] = fused_decode.declare_signatures(
-            cuda_build.load_kernel_library("fused_decode", flags[t]))
+        libs[t] = declare(cuda_build.load_kernel_library(name, flags[t]))
 
     _, _, decoders, packed = cs.make_scene(dev)
     bound_t = torch.from_numpy(cs.BOUND).to(dev)
     args = cs.decode_inputs(packed, bound_t, cs.N_MAIN, dev, seed=1)
     w16, f32 = fused_decode.pack_trio_weights(decoders)
+    if opts.backward:
+        g = torch.randn(cs.N_MAIN, 4, device=dev, generator=torch.Generator(dev).manual_seed(0))
+        ref = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=cs.BWD_PLAIN_CHUNK)
+        for rnd in (1, 2):
+            for t in (opts.tiles if rnd == 1 else opts.tiles[::-1]):
+                run = lambda: fused_decode.launch_fused_decode_bwd(
+                    *args, w16, f32, g, lib=libs[t])
+                rel = max(float((o - r).norm() / r.norm()) for o, r in zip(run(), ref))
+                ms = cs.cuda_ms(run, opts.iters)
+                print(f"round {rnd}  FD_BWD_TILE={t:4d}  smem "
+                      f"{libs[t].fused_decode_bwd_smem_bytes():6d} B  {ms:7.3f} ms  "
+                      f"max rel norm err {rel:.2e}  {' | '.join(logs[t])}", flush=True)
+        return
     with torch.no_grad():
         ref = fused_decode.fused_decode_packed_plain(decoders, *args)
         for rnd in (1, 2):

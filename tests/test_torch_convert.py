@@ -26,7 +26,12 @@ from evennicer_slam_tpu_torch.models.eventnet import load_eventnet_npz
 from evennicer_slam_tpu_torch.models.grids import init_grids
 from evennicer_slam_tpu_torch.render.renderer import Renderer, RenderSettings
 from evennicer_slam_tpu_torch.slam.camera import Camera
-from evennicer_slam_tpu_torch.slam.tracker import TrackerConfig, tracking_loss
+from evennicer_slam_tpu_torch.slam.tracker import (
+    Tracker,
+    TrackerConfig,
+    track_frame,
+    tracking_loss,
+)
 from evennicer_slam_tpu_torch.utils import runtime
 
 from torch_parity import cap_threads, jax_to_np
@@ -146,6 +151,8 @@ def test_every_port_module_imports_here():
     names = [m.name for m in pkgutil.walk_packages(
         evennicer_slam_tpu_torch.__path__, "evennicer_slam_tpu_torch.")]
     assert "evennicer_slam_tpu_torch.ops.fused_decode" in names
+    for new in ("utils.optim", "data.synthetic", "slam.tracker", "ops.cuda_build"):
+        assert f"evennicer_slam_tpu_torch.{new}" in names
     for name in names:
         __import__(name)
 
@@ -179,6 +186,16 @@ ENTRY_POINTS = {
         torch.zeros(10, 15, 3), torch.zeros(150), torch.zeros(10, 15),
         TrackerConfig(), Camera(20, 30, 18.0, 18.0, 14.5, 9.5), RenderSettings(),
         rgbd=False, event=False),
+    "track_frame": lambda: track_frame(
+        torch.eye(4), torch.eye(4), {}, {}, {}, torch.as_tensor(BOUND), None,
+        torch.zeros(20, 30, 3), torch.zeros(20, 30), torch.zeros(10, 15, 2),
+        torch.zeros(10, 15, 3), torch.zeros(150), torch.zeros(10, 15), torch.zeros(7), 1.0,
+        TrackerConfig(), Camera(20, 30, 18.0, 18.0, 14.5, 9.5), RenderSettings(),
+        rgbd=False, event=False, const_speed=False),
+    "Tracker": lambda: Tracker(TrackerConfig(), Camera(20, 30, 18.0, 18.0, 14.5, 9.5),
+                               RenderSettings(), BOUND),
+    "adam_state_from_numpy": lambda: convert.adam_state_from_numpy(
+        np.zeros(3, np.float32), np.zeros(3, np.float32), np.zeros((), np.int32)),
 }
 
 
@@ -206,6 +223,42 @@ def test_fused_decode_on_cpu_tensors_never_builds_a_kernel():
     assert tuple(out.shape) == (5, 4) and cuda_build.BUILD_LOG == before
     with pytest.raises(ValueError, match="CUDA"):
         fused_decode.launch_fused_decode_fwd(*[torch.zeros(5, 3)] * 7)
+
+
+def test_kernel_digest_covers_included_headers(tmp_path, monkeypatch):
+    """The library's name carries a digest of the source, of every header it
+    includes (recursively) and of the flags: a changed header builds anew.
+    Hashing starts no compiler."""
+    from evennicer_slam_tpu_torch.ops import cuda_build
+
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n  #  include "sub/deep.cuh"\n'
+                                   "#include <cuda_runtime.h>\nint k;\n")
+    (tmp_path / "common.cuh").write_text('#include "sub/deep.cuh"\nint c;\n')
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "sub" / "deep.cuh").write_text("int d;\n")
+    (tmp_path / "other.cuh").write_text("int o;\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    files = cuda_build.source_files("k")
+    assert [os.path.relpath(f, tmp_path) for f in files] == \
+        ["k.cu", "common.cuh", os.path.join("sub", "deep.cuh")]
+    base = cuda_build.source_digest("k")
+    assert base == cuda_build.source_digest("k") and len(base) == 12
+    assert cuda_build.source_digest("k", ("-DX=1",)) != base
+    (tmp_path / "other.cuh").write_text("int changed;\n")  # not included: no effect
+    assert cuda_build.source_digest("k") == base
+    (tmp_path / "sub" / "deep.cuh").write_text("int d2;\n")
+    deep = cuda_build.source_digest("k")
+    assert deep != base
+    (tmp_path / "common.cuh").write_text('#include "sub/deep.cuh"\nint c2;\n')
+    assert cuda_build.source_digest("k") not in (base, deep)
+
+
+def test_both_kernels_share_the_common_header():
+    from evennicer_slam_tpu_torch.ops import cuda_build
+
+    for name in ("fused_decode", "fused_decode_bwd"):
+        files = [os.path.basename(f) for f in cuda_build.source_files(name)]
+        assert files == [f"{name}.cu", "fused_decode_common.cuh"]
 
 
 def test_setup_torch_turns_tf32_off_and_says_so(capsys):

@@ -8,6 +8,11 @@ folds the bf16 round trips away on the JAX package's non-Pallas path, so that
 path is no elementwise reference; in aggregate the comparison is against the
 f32 ``nice_forward`` (relative norm < 0.01 forward; gradient wrt the points
 relative < 0.15 and cosine > 0.99, the bounds of ``TestPackedVsReference``).
+
+The backward's plain version (``fused_decode_bwd_plain``: autograd of the
+forward's plain version) is held against the JAX backward kernel in interpret
+mode for each of its three outputs: relative < 0.02 and cosine > 0.999 (the
+two frameworks round the cotangents to bf16 at other places).
 """
 
 import os
@@ -21,8 +26,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from evennicer_slam_tpu.core.bounds import normalize_3d_coordinate as j_normalize
 from evennicer_slam_tpu.models import decoders as jd
 from evennicer_slam_tpu.models.grids import init_grids as j_init_grids
+from evennicer_slam_tpu.ops import fused_decode as jf
+from evennicer_slam_tpu.ops.grid_sample import packed_rows_and_frac as j_rows_and_frac
 from evennicer_slam_tpu_torch.models import decoders as td
 from evennicer_slam_tpu_torch.ops import fused_decode as tf
 from evennicer_slam_tpu_torch.ops.grid_sample import packed_rows_and_frac
@@ -133,6 +141,68 @@ def test_point_gradient_matches_pallas_backward(scene):
     assert rel < 0.02 and cos > 0.999, (rel, cos)
 
 
+def _cotangent():
+    return np.random.default_rng(5).standard_normal((N, 4)).astype(np.float32)
+
+
+def test_bwd_plain_is_autograd_of_the_plain_forward(scene):
+    args = _decode_args(scene, t(scene["p"]))
+    g = t(_cotangent())
+    leaves = [a.clone().requires_grad_() for a in args[:3]]
+    raw = tf.fused_decode_packed_plain(scene["dt"], *leaves, *args[3:])
+    want = torch.autograd.grad(raw, leaves, g)
+    got = tf.fused_decode_bwd_plain(scene["dt"], *args, g)
+    chunked = tf.fused_decode_bwd_plain(scene["dt"], *args, g, chunk=400)
+    for a, b, c in zip(got, want, chunked):
+        assert tuple(a.shape) == (N, 3) and not a.requires_grad
+        assert torch.equal(a, b) and torch.equal(a, c)
+    # the wrapper on CPU tensors is the plain version, and autograd goes through it
+    raw = tf.fused_decode_packed(scene["dt"], *leaves, *args[3:])
+    for a, b in zip(torch.autograd.grad(raw, leaves, g), want):
+        assert torch.equal(a, b)
+
+
+def test_bwd_plain_matches_pallas_backward_kernel(scene):
+    """dp, dfrac_m and dfrac_f against ``_fused_call_bwd`` (the JAX backward
+    kernel in interpret mode) through ``jax.vjp`` of the JAX package's
+    ``fused_decode_packed``, for a seeded cotangent."""
+    pj = jnp.asarray(scene["p"])
+    p_nor = j_normalize(pj, jnp.asarray(BOUND))
+    rows_m, frac_m = j_rows_and_frac(scene["pj"]["middle_packed"], p_nor)
+    rows_f, frac_f = j_rows_and_frac(scene["pj"]["fc_packed"], p_nor)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jf.fused_decode_packed(scene["dj"], a, b, c, rows_m, rows_f),
+        pj, frac_m, frac_f)
+    want = [np.asarray(x) for x in vjp(jnp.asarray(_cotangent()))]
+    args = _decode_args(scene, t(scene["p"]))
+    assert_close(args[1], np.asarray(frac_m), atol=1e-6)
+    got = tf.fused_decode_bwd_plain(scene["dt"], *args, t(_cotangent()))
+    for name, a, b in zip(("dp", "dfrac_m", "dfrac_f"), got, want):
+        a = a.numpy()
+        assert np.abs(b).max() > 1e-3, name
+        rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+        cos = np.sum(a * b) / (np.linalg.norm(a) * np.linalg.norm(b))
+        assert rel < 0.02 and cos > 0.999, (name, rel, cos)
+
+
+def test_the_backward_rounds_each_cotangent_through_bf16(scene):
+    """What the backward kernel has to reproduce: autograd casts the cotangent
+    of a rounded activation operand back through bf16."""
+    a = t(np.random.default_rng(6).standard_normal((5, 8)).astype(np.float32)).requires_grad_()
+    w = t(np.random.default_rng(7).standard_normal((8, 4)).astype(np.float32))
+    g = t(np.random.default_rng(8).standard_normal((5, 4)).astype(np.float32))
+    (ga,) = torch.autograd.grad(tf._mm(a, w), a, g)
+    raw = g @ w.bfloat16().float().T
+    assert torch.equal(ga, raw.bfloat16().float()) and not torch.equal(ga, raw)
+
+
+def test_backward_launch_refuses_cpu_tensors():
+    z = torch.zeros(5, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tf.launch_fused_decode_bwd(z, z, z, z, z, z, z, torch.zeros(5, 4))
+    assert tf.fused_decode_packed.bwd_launches == 0
+
+
 def test_rows_weights_and_middle_copy_carry_no_gradient(scene):
     """Frozen by construction: only points and fractions receive gradient,
     and the fine MLP's copy of the middle feature is detached — the middle
@@ -196,10 +266,11 @@ def test_pack_trio_weights_layout(scene):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card(scene):
-    """The CUDA kernel against the plain version on a GPU. Skipped without
-    one; the comparison that counts is ``chip_smoke.py``'s."""
+    """The CUDA kernels, forward and backward, against their plain versions on
+    a GPU. Skipped without one; the comparison that counts is
+    ``chip_smoke.py``'s."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device and nvcc: the kernel has no CPU mode")
+        pytest.skip("needs a CUDA device and nvcc: the kernels have no CPU mode")
     dev = torch.device("cuda")
     dt = to_torch(scene["dj"])
     dt = {k: {kk: ([x.to(dev) for x in vv] if isinstance(vv, list) else vv.to(dev))
@@ -211,6 +282,14 @@ def test_kernel_matches_plain_on_the_card(scene):
     assert tf.fused_decode_packed.launches == before + 1
     ref = tf.fused_decode_packed_plain(dt, *args)
     assert_close(out, ref.cpu().numpy(), atol=5e-3, rtol=5e-3)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        q = args[0].clone().requires_grad_()
-        tf.fused_decode_packed(dt, q, *args[1:]).sum().backward()
+    # the backward kernel through autograd against autograd of the plain
+    # version: |err| <= 5e-3 * (rms of the reference + |reference|)
+    g = t(_cotangent()).to(dev)
+    leaves = [a.clone().requires_grad_() for a in args[:3]]
+    before = tf.fused_decode_packed.bwd_launches
+    got = torch.autograd.grad(tf.fused_decode_packed(dt, *leaves, *args[3:]), leaves, g)
+    torch.cuda.synchronize()
+    assert tf.fused_decode_packed.bwd_launches == before + 1
+    want = tf.fused_decode_bwd_plain(dt, *args, g)
+    for a, b in zip(got, want):
+        assert bool(((a - b).abs() <= 5e-3 * (b.pow(2).mean().sqrt() + b.abs())).all())

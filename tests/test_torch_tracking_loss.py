@@ -123,7 +123,7 @@ def test_esim_predictor_no_blur_no_dynamic_mask(world):
 
 def test_pose_gradient_of_the_total(world):
     """Autograd through the port's whole path (f32 decode) against jax.grad:
-    what the next slice's pose optimisation will follow."""
+    what the pose optimisation (track_frame) follows."""
     f = world["frame"]
     key = jax.random.PRNGKey(3)
     jcfg, tcfg = jt.TrackerConfig(**CFG), tt.TrackerConfig(**CFG)
