@@ -100,6 +100,20 @@ BOUND = np.array([[-2.0, 2.0], [-1.6, 1.6], [-1.2, 1.2]], np.float32)
 # output. So at the main-path size (3.5 million values) up to one value in
 # 100,000 may lie outside that tolerance, and every value must lie within
 # ten times it; at N = 1,500 every value lies within it.
+#
+# Those counts were set for kernels that summed on the CUDA cores in the
+# plain version's own order (sequential k, as cuBLAS sums these shapes), so
+# most of their products were bit-identical to the plain version's. The
+# tensor cores sum in another order, and the plain version is itself an
+# approximation: against the same arithmetic with every product summed
+# exactly and rounded once (exact_products), it lies outside the tolerance at
+# more values than that allowance (69 of 3.5 million on an H100). So each
+# check measures that distance, X values outside the tolerance and X10
+# outside ten times it, on its own inputs, and holds the kernel to the
+# tolerance with the allowance max(fixed allowance, 2 X) (and, beyond ten
+# times it, max(fixed, 2 X10)), since two approximations of one function each
+# X away may disagree at 2 X; and it requires the kernel to be no further from
+# the exact arithmetic than the plain version plus the fixed allowance.
 ATOL = RTOL = 5e-3
 OUTLIER_SHARE = 1e-5
 OUTLIER_FACTOR = 10.0
@@ -153,10 +167,18 @@ BWD_BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16 + 3 * 12
 # the reference + |reference|); at the main-path size up to BWD_OUTLIER_SHARE
 # of the values may lie outside it and up to a tenth of that share outside ten
 # times it (sign flips); at N = 1,500 none may lie outside ten times it and
-# at most 2 values outside it.
+# at most 2 values outside it. As for the forward, those counts are the fixed
+# allowance; each check also measures the plain version's own distance from
+# the exact arithmetic and allows twice that (the plain version alone has 30
+# values of dp beyond ten times the tolerance at N = 881,280 on an H100).
 BWD_TOL = 5e-3
 BWD_OUTLIER_SHARE = 1e-4
 BWD_PLAIN_CHUNK = 220320  # autograd of the plain version walks N_MAIN in 4 chunks
+FWD_DESIGN = ("mma.sync m16n8k16 bf16 with f32 accumulators, warp tiles of {points} "
+              "points, one persistent block per SM, weights resident in shared memory")
+BWD_DESIGN = ("forward recompute and reverse products as mma.sync m16n8k16 bf16, warp "
+              "tiles of {points} points, one persistent block per SM, weights resident "
+              "in shared memory")
 
 
 def say(msg):
@@ -210,6 +232,26 @@ def decode_bwd_bound(n, param_bytes):
     return 1e3 * max(t_bytes, t_ops), by, 1e3 * t_bytes, 1e3 * t_ops, 1e3 * t_ops_f32
 
 
+@contextlib.contextmanager
+def exact_products():
+    """Inside the block, the plain version sums every MLP product exactly
+    (float64) and rounds it once to float32; operands are rounded to bf16 as
+    before, everything else is unchanged. Autograd through it rounds each
+    cotangent once as well."""
+    f32_mm = fused_decode._mm
+    fused_decode._mm = lambda a, w: (a.bfloat16().double() @ w.bfloat16().double()).float()
+    try:
+        yield
+    finally:
+        fused_decode._mm = f32_mm
+
+
+def outside(got, want, tol):
+    """Values of ``got`` outside ``tol`` of ``want``, and outside ten times it."""
+    err = (got - want).abs()
+    return int((err > tol).sum()), int((err > OUTLIER_FACTOR * tol).sum())
+
+
 def make_scene(dev):
     """Full-width grids (noise added so the features matter), decoders,
     packed snapshot."""
@@ -243,15 +285,19 @@ def check_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
         out = fused_decode.fused_decode_packed(decoders, *args)
         torch.cuda.synchronize()
         ref = fused_decode.fused_decode_packed_plain(decoders, *args)
+        with exact_products():
+            exact = fused_decode.fused_decode_packed_plain(decoders, *args)
         torch.cuda.synchronize()
         if out.shape != (n, 4) or not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"kernel output at N={n}: bad shape or non-finite")
         err = (out - ref).abs()
         max_abs = float(err.max())
         max_rel = float((err / ref.abs().clamp_min(1e-3)).max())
-        n_bad = int((err > ATOL + RTOL * ref.abs()).sum())
-        n_far = int((err > OUTLIER_FACTOR * (ATOL + RTOL * ref.abs())).sum())
-        allowed = int(OUTLIER_SHARE * out.numel())  # 0 at N = 1,500
+        n_bad, n_far = outside(out, ref, ATOL + RTOL * ref.abs())
+        plain_bad, plain_far = outside(ref, exact, ATOL + RTOL * exact.abs())
+        exact_bad, exact_far = outside(out, exact, ATOL + RTOL * exact.abs())
+        fixed = int(OUTLIER_SHARE * out.numel())  # 0 at N = 1,500
+        allowed, allowed_far = max(fixed, 2 * plain_bad), 2 * plain_far
         rel_norm = float((out - ref).norm() / ref.norm())
         w16, f32 = fused_decode.pack_trio_weights(decoders)
         ms = cuda_ms(lambda: fused_decode.fused_decode_packed(decoders, *args), iters)
@@ -266,16 +312,23 @@ def check_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
         "n": n, "max_abs_err": max_abs, "max_rel_err": max_rel,
         "rel_norm_err": rel_norm, "outside_tolerance": n_bad,
         "outside_allowed": allowed, "outside_10x_tolerance": n_far,
+        "outside_10x_allowed": allowed_far, "fixed_allowance": fixed,
+        "plain_vs_exact": [plain_bad, plain_far], "kernel_vs_exact": [exact_bad, exact_far],
         "atol": ATOL, "rtol": RTOL, "ms": ms, "kernel_only_ms": kernel_only_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
     }
     say(f"kernel vs plain at N={n}: " + json.dumps(res))
-    if n_bad > allowed or n_far:
+    if n_bad > allowed or n_far > allowed_far:
         raise RuntimeError(
             f"kernel disagrees with its plain version at N={n}: {n_bad} values "
             f"outside atol={ATOL} rtol={RTOL} ({allowed} allowed), {n_far} outside "
-            f"{OUTLIER_FACTOR:g} times that (max abs {max_abs:.3e})")
+            f"{OUTLIER_FACTOR:g} times that ({allowed_far} allowed; max abs {max_abs:.3e})")
+    if exact_bad > plain_bad + fixed or exact_far > plain_far:
+        raise RuntimeError(
+            f"kernel at N={n} is further from the exact arithmetic than the plain version: "
+            f"{exact_bad} / {exact_far} values outside the tolerance / ten times it, "
+            f"plain {plain_bad} / {plain_far}")
     return res
 
 
@@ -291,22 +344,31 @@ def check_bwd_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
     torch.cuda.synchronize()
     want = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk)
     torch.cuda.synchronize()
+    with exact_products():
+        exact = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk)
+    torch.cuda.synchronize()
     big = n > 10000
-    allowed = int(BWD_OUTLIER_SHARE * 3 * n) if big else 2
-    allowed_far = allowed // 10 if big else 0
-    res = {"n": n, "tol": BWD_TOL, "outside_allowed": allowed,
-           "outside_10x_allowed": allowed_far}
+    fixed = int(BWD_OUTLIER_SHARE * 3 * n) if big else 2
+    fixed_far = fixed // 10 if big else 0
+    res = {"n": n, "tol": BWD_TOL, "fixed_allowance": [fixed, fixed_far]}
     failed = []
-    for name, o, r in zip(("dp", "dfrac_m", "dfrac_f"), got, want):
+    for name, o, r, x in zip(("dp", "dfrac_m", "dfrac_f"), got, want, exact):
         if o.shape != (n, 3) or not bool(torch.isfinite(o).all()):
             raise RuntimeError(f"backward kernel {name} at N={n}: bad shape or non-finite")
         err = (o - r).abs()
-        tol = BWD_TOL * (r.pow(2).mean().sqrt() + r.abs())
-        n_bad, n_far = int((err > tol).sum()), int((err > 10 * tol).sum())
+        n_bad, n_far = outside(o, r, BWD_TOL * (r.pow(2).mean().sqrt() + r.abs()))
+        tol_x = BWD_TOL * (x.pow(2).mean().sqrt() + x.abs())
+        plain_bad, plain_far = outside(r, x, tol_x)
+        exact_bad, exact_far = outside(o, x, tol_x)
+        allowed, allowed_far = max(fixed, 2 * plain_bad), max(fixed_far, 2 * plain_far)
         res[name] = {"max_abs_err": float(err.max()), "ref_rms": float(r.pow(2).mean().sqrt()),
                      "rel_norm_err": float((o - r).norm() / r.norm()),
-                     "outside_tolerance": n_bad, "outside_10x_tolerance": n_far}
-        if n_bad > allowed or n_far > allowed_far:
+                     "outside_tolerance": n_bad, "outside_10x_tolerance": n_far,
+                     "outside_allowed": allowed, "outside_10x_allowed": allowed_far,
+                     "plain_vs_exact": [plain_bad, plain_far],
+                     "kernel_vs_exact": [exact_bad, exact_far]}
+        if (n_bad > allowed or n_far > allowed_far or exact_bad > plain_bad + fixed
+                or exact_far > plain_far + fixed_far):
             failed.append(name)
     # the same through autograd.Function, as the render path reaches it
     leaves = [a.detach().clone().requires_grad_() for a in args[:3]]
@@ -634,13 +696,17 @@ def main():
     lib_b = fused_decode.bwd_kernel_library()
     build_s = time.perf_counter() - t0
     say(f"built both kernels in {build_s:.1f} s (set-up)")
-    for name, tile, smem in (
-            ("fused_decode", lib.fused_decode_tile(), lib.fused_decode_smem_bytes()),
-            ("fused_decode_bwd", lib_b.fused_decode_bwd_tile(),
-             lib_b.fused_decode_bwd_smem_bytes())):
+    ptxas = {}
+    for name, warps, points, smem in (
+            ("fused_decode", lib.fused_decode_warps(), lib.fused_decode_warp_points(),
+             lib.fused_decode_smem_bytes()),
+            ("fused_decode_bwd", lib_b.fused_decode_bwd_warps(),
+             lib_b.fused_decode_bwd_warp_points(), lib_b.fused_decode_bwd_smem_bytes())):
         log = cuda_build.BUILD_LOG[name]
-        say(f"  {log['lib']}: {float(log['seconds']):.1f} s; tile {tile} points, "
-            f"{smem} B of shared memory per block")
+        ptxas[name] = {"warps": warps, "points_per_warp": points, "smem_bytes": smem,
+                       **cuda_build.ptxas_usage(str(log["ptxas"]))}
+        say(f"  {log['lib']}: {float(log['seconds']):.1f} s; {warps} warps a block, "
+            f"{points} points a warp tile, {smem} B of shared memory per block")
         for line in str(log["ptxas"]).splitlines():
             if "registers" in line or "spill" in line or "warning" in line.lower():
                 say("    ptxas: " + line.strip())
@@ -820,6 +886,9 @@ def main():
         "library_ms": None,
         "n_points": N_MAIN,
         "kernel_only_ms": main_res["kernel_only_ms"],
+        "bound_share": main_res["bound_ms"] / main_res["kernel_only_ms"],
+        "design": FWD_DESIGN.format(points=ptxas["fused_decode"]["points_per_warp"]),
+        **ptxas["fused_decode"],
         "launches_render_img": launches_img,
         "small": small,
     }, {
@@ -836,6 +905,10 @@ def main():
         "library_ms": None,
         "n_points": N_MAIN,
         "kernel_only_ms": bwd_main["kernel_only_ms"],
+        "bound_share": bwd_main["bound_ms"] / bwd_main["kernel_only_ms"],
+        "design": BWD_DESIGN.format(
+            points=ptxas["fused_decode_bwd"]["points_per_warp"]),
+        **ptxas["fused_decode_bwd"],
         "main": {k: bwd_main[k] for k in ("dp", "dfrac_m", "dfrac_f")},
         "small": bwd_small,
         "pose_gradient_vs_plain": grad_res,

@@ -20,138 +20,162 @@
 // operands of every MLP product are rounded to bf16 (round to nearest even),
 // products are accumulated in f32; the embedding product, the sine and the
 // corner reduction are f32. The sine sees arguments of O(+-100), so this
-// file must not be compiled with -use_fast_math and does not use __sinf.
+// file must not be compiled with -use_fast_math and does not use __sinf: its
+// sine is the math library's sinf bit for bit (sin_cos in the header).
 // The corner reduction and the embedding argument use explicit
 // round-to-nearest multiplies and adds (no FMA contraction) in the order of
 // the plain version, so both produce bit-identical features and sine
 // arguments; the only remaining difference is the order of the f32 sums
-// inside the MLP products.
+// inside the MLP products (the tensor cores' own).
 //
 // What bounds it on an H100: each point reads 1,536 B of gathered rows and
-// 36 B of point/fractions and writes 16 B, against about 0.1 MFLOP of
-// non-zero MLP work. At 3.35 TB/s and the bf16 tensor-core peak the memory
-// time is about four times the arithmetic time, so the floor is the row
-// traffic. This first version does not reach that floor: it runs the
-// products as plain FMA loops on the CUDA cores (f32 peak 67 TFLOP/s), one
-// thread per point, and is bound by those.
+// 36 B of point/fractions and writes 16 B, against 50,816 multiply-adds with
+// bf16 operands and 279 sines. At 3.35 TB/s and the bf16 tensor-core peak
+// the memory time (0.42 ms at N = 881,280) is about four times the product
+// time, so the floor is the row traffic. On the CUDA cores the products alone
+// would cost 1.3 ms of f32 FMA at N = 881,280, and about twice that counting
+// the bf16 unpacks: they have to run on the tensor cores.
 //
-// Design. The TPU kernel stacked the three MLPs block-diagonally to fill a
-// 128x128 matrix unit; stored densely that is three times the weights, two
-// thirds of them zeros, and does not fit a block's shared memory. Here the
-// three MLPs keep their own weights (51,008 bf16 values, 102 KB) and are
-// staged once per block into shared memory, together with the f32 biases and
-// embedding matrices (7 KB). A block walks over tiles of FD_TILE points
-// (grid-stride, one block per SM), each in two phases:
+// Design. The three MLPs keep their own weights (51,200 bf16 values with the
+// embedding padded to 96 rows, 102 KB, swizzled for ldmatrix) and are staged
+// once per block into shared memory, with the f32 biases, embedding matrices
+// and heads (9 KB). One persistent block per SM; its FD_WARPS warps each walk
+// their own tiles of 16 x FD_MTILES points (warp-level grid stride), so no
+// block-wide barrier sits in the tile loop and one warp's row loads overlap
+// the others' products. Per tile:
 //   A. half-warps stream the packed rows of one point each with coalesced
-//      4-byte loads (16 lanes x 2 channels per corner), reduce over the 8
-//      corners in registers and leave the features in shared memory as
-//      packed bf16 pairs, one column per point;
-//   B. each thread takes one point through the three MLPs. The 32 hidden
-//      units live in registers as f32 accumulators; every weight row is read
-//      from shared memory at one address by the whole warp (a broadcast, four
-//      16-byte loads per 32 weights). The embedding feeds block 0 and the
-//      skip half of block 3 at once, so each sine is computed once and never
-//      stored. Between blocks the bf16-rounded hidden state is parked in the
-//      thread's own shared-memory column so the product loops need no
-//      register indexing and stay small in code.
-//
-// For later work, in order of expected gain: run the products on the tensor
-// cores (wgmma, 64-point tiles against the resident weights); do the row
-// gather inside the kernel from the packed grids (removes the 1.5 KB per
-// point of gathered rows from device memory altogether); TMA loads for the
-// rows with a producer warp so phase A overlaps phase B; two points per
-// thread to halve the weight unpacking.
+//      4-byte loads, reduce over the 8 corners and leave the features in the
+//      warp's own shared-memory buffer as bf16 rows;
+//   B. the three MLPs on the tensor cores (mlp_forward in the header): the
+//      feature's A fragments are loaded once per MLP and kept through its five
+//      blocks, the hidden state stays in registers, each lane computes the
+//      sines of its own A positions; the head [32] -> 1 or 3 is a per-lane dot
+//      over the lane's 8 columns and a reduction over the quad by shuffles.
+// What is left on the CUDA cores: the 279 sines a point, the corner
+// reduction, the fragment epilogues (bias, ReLU, rounding) and the heads.
 
 #include "fused_decode_common.cuh"
 
-// Points per tile = threads per block. 384 was the fastest of 128..448 on an
-// H100 (scripts/tune_fused_decode.py); 448 and up leave too few registers a
-// thread (spills), 512 does not fit shared memory.
-#ifndef FD_TILE
-#define FD_TILE 384
+// Warps per block and m16 tiles per warp (scripts/tune_fused_decode.py). On an
+// H100, 12 warps of one m16 tile: as fast as 16 (which spill at the 128
+// registers a thread they leave), faster than 8; two m16 tiles a warp need
+// more than 255 registers and spill.
+#ifndef FD_WARPS
+#define FD_WARPS 12
+#endif
+#ifndef FD_MTILES
+#define FD_MTILES 1
 #endif
 
 namespace {
 
 using namespace fd;
 
-constexpr int TILE = FD_TILE;  // points per tile == threads per block
-constexpr int TP = TILE + 1;   // column stride in words (odd: no bank conflicts)
+constexpr int WARPS = FD_WARPS;
+constexpr int MT = FD_MTILES;
+constexpr int NP = 16 * MT;  // points per warp tile
+constexpr int THREADS = 32 * WARPS;
 
-constexpr size_t SMEM_FEAT = size_t(FEAT_ROWS) * TP * 4;
-constexpr size_t SMEM_HS = size_t(HS_ROWS) * TP * 4;
-constexpr size_t SMEM_BYTES = SMEM_W + SMEM_F + SMEM_FEAT + SMEM_HS;
+constexpr size_t SMEM_BYTES = SMEM_PARAMS + WARPS * feat_bytes(MT);
 
-static_assert(TILE % 32 == 0 && TILE >= 32 && TILE <= 1024, "tile size");
+static_assert(WARPS >= 1 && WARPS <= 32 && MT >= 1 && MT <= 4, "block shape");
 static_assert(SMEM_BYTES <= SMEM_BLOCK_MAX, "exceeds a block's shared memory");
 
-__global__ void __launch_bounds__(TILE, 1)
+// raw head of MLP M: [32] -> 1 (occupancy) or 3 (rgb) for the lane's rows g
+// and g + 8, summed over the quad; o[mt][row][j]
+template <int M>
+__device__ __forceinline__ void head(const float* fsm, const float (&h)[MT][4][4], int lane,
+                                     float (&o)[MT][2][3]) {
+    constexpr int NO = (M == 2) ? 3 : 1;
+    const float* ow = fsm + M * F_MLP + F_OUTW;
+    const int t = lane & 3;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) o[mt][r][j] = 0.f;
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+            const float4 w = *reinterpret_cast<const float4*>(ow + 4 * (8 * n + 2 * t + x));
+            const float wj[3] = {w.x, w.y, w.z};
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    const float a = bf16_round(h[mt][n][2 * r + x]);
+#pragma unroll
+                    for (int j = 0; j < NO; ++j) o[mt][r][j] = fmaf(a, wj[j], o[mt][r][j]);
+                }
+        }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+#pragma unroll
+                for (int j = 0; j < NO; ++j)
+                    o[mt][r][j] += __shfl_xor_sync(0xffffffffu, o[mt][r][j], off);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ frac_m,
                         const float* __restrict__ frac_f, const uint32_t* __restrict__ rows_m,
                         const uint32_t* __restrict__ rows_f, const uint4* __restrict__ w_bf16,
                         const uint4* __restrict__ w_f32, float4* __restrict__ out,
-                        long long n_points, int n_tiles) {
+                        long long n_points, long long n_tiles) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const __nv_bfloat16* wsm = reinterpret_cast<const __nv_bfloat16*>(smem);
     const float* fsm = reinterpret_cast<const float*>(smem + SMEM_W);
-    uint32_t* feat = reinterpret_cast<uint32_t*>(smem + SMEM_W + SMEM_F);
-    uint32_t* hs = reinterpret_cast<uint32_t*>(smem + SMEM_W + SMEM_F + SMEM_FEAT);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    uint32_t* feat = reinterpret_cast<uint32_t*>(smem + SMEM_PARAMS + warp * feat_bytes(MT));
+    const uint32_t wsm = smem_u32(smem);
+    const uint32_t feat_s = smem_u32(feat);
 
-    const int tid = threadIdx.x;
-
-    stage_params<TILE>(smem, w_bf16, w_f32, tid);
+    stage_params<THREADS>(smem, w_bf16, w_f32, threadIdx.x);
     __syncthreads();
 
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const long long tile0 = (long long)tile * TILE;
+    // warp-major over the blocks, so a short launch spreads over the SMs
+    for (long long tile = (long long)warp * gridDim.x + blockIdx.x; tile < n_tiles;
+         tile += (long long)gridDim.x * WARPS) {
+        const long long base = tile * NP;
 
-        // ---- phase A: corner reduction, one point per half-warp ----------
-        reduce_corners<TILE, TP>(feat, frac_m, frac_f, rows_m, rows_f, tile0, n_points, tid);
-        __syncthreads();
+        // ---- phase A: corner reduction into the warp's feature rows ------
+        reduce_corners<NP>(feat, frac_m, frac_f, rows_m, rows_f, base, n_points, lane);
+        __syncwarp();
 
-        // ---- phase B: the three MLPs, one point per thread ----------------
-        const long long n = tile0 + tid;
-        if (n < n_points) {
-            const float px = p[n * 3 + 0], py = p[n * 3 + 1], pz = p[n * 3 + 2];
-            uint32_t* hcol = hs + tid;
-            float res[4] = {0.f, 0.f, 0.f, 0.f};  // r, g, b, occupancy
+        // ---- phase B: the three MLPs on the tensor cores -----------------
+        float q[MT][2][3];
+        load_points<MT>(p, base, n_points, lane, q);
+        float h[MT][4][4];
+        uint32_t unused[MT][5];
+        float om[MT][2][3], of[MT][2][3], oc[MT][2][3];
+        mlp_forward<0, MT, false>(wsm, fsm, feat_s, q, h, unused, lane);
+        head<0>(fsm, h, lane, om);
+        mlp_forward<1, MT, false>(wsm, fsm, feat_s, q, h, unused, lane);
+        head<1>(fsm, h, lane, of);
+        mlp_forward<2, MT, false>(wsm, fsm, feat_s, q, h, unused, lane);
+        head<2>(fsm, h, lane, oc);
 
-#pragma unroll 1
-            for (int m = 0; m < 3; ++m) {
-                const MlpView v = mlp_view<TP>(m, wsm, fsm, feat, tid);
-                float acc[HID];
-                uint32_t unused[5];
-                mlp_hidden<TP, false>(v, px, py, pz, hcol, acc, unused);
-
-                // head: [32] -> 4 (columns past the MLP's own are zero padding)
-                float o[4] = {0.f, 0.f, 0.f, 0.f};
-                {
-                    const uint2* wo =
-                        reinterpret_cast<const uint2*>(v.W + W_FC + 5 * v.fc_stride);
+        const float* ob_m = fsm + 0 * F_MLP + F_OUTB;
+        const float* ob_f = fsm + 1 * F_MLP + F_OUTB;
+        const float* ob_c = fsm + 2 * F_MLP + F_OUTB;
+        const int t = lane & 3;
 #pragma unroll
-                    for (int k = 0; k < HID; ++k) {
-                        const float a = bf16_round(acc[k]);
-                        const uint2 w = wo[k];
-                        o[0] = fmaf(a, bf_lo(w.x), o[0]);
-                        o[1] = fmaf(a, bf_hi(w.x), o[1]);
-                        o[2] = fmaf(a, bf_lo(w.y), o[2]);
-                        o[3] = fmaf(a, bf_hi(w.y), o[3]);
-                    }
-                }
-                const float* ob = v.F + F_OUTB;
-                if (m == 0) {
-                    res[3] = o[0] + ob[0];
-                } else if (m == 1) {
-                    res[3] = (o[0] + ob[0]) + res[3];  // fine_occ + middle_occ
-                } else {
-                    res[0] = o[0] + ob[0];
-                    res[1] = o[1] + ob[1];
-                    res[2] = o[2] + ob[2];
-                }
+        for (int mt = 0; mt < MT; ++mt) {
+            // lane t = 0 writes row g, lane t = 1 row g + 8
+            const int r = t & 1;
+            const long long n = base + 16 * mt + 8 * r + (lane >> 2);
+            if (t < 2 && n < n_points) {
+                const float occ_m = om[mt][r][0] + ob_m[0];
+                const float occ = (of[mt][r][0] + ob_f[0]) + occ_m;  // fine + middle
+                out[n] = make_float4(oc[mt][r][0] + ob_c[0], oc[mt][r][1] + ob_c[1],
+                                     oc[mt][r][2] + ob_c[2], occ);
             }
-            out[n] = make_float4(res[0], res[1], res[2], res[3]);
         }
-        __syncthreads();  // the next tile's phase A overwrites the features
+        __syncwarp();  // the next tile's phase A overwrites the features
     }
 }
 
@@ -160,7 +184,7 @@ fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f
 // Launch on `stream` (PyTorch's current stream). No synchronisation, no
 // allocation. Returns cudaGetLastError() (0 on success). All pointers must be
 // 16-byte aligned; rows are bf16 [n][256] and [n][512]; w_bf16 / w_f32 are
-// the packed parameter buffers in the layout above.
+// the packed parameter buffers in the layout of fused_decode_common.cuh.
 extern "C" int fused_decode_fwd(const void* p, const void* frac_m, const void* frac_f,
                                 const void* rows_m, const void* rows_f, const void* w_bf16,
                                 const void* w_f32, void* out, long long n_points, void* stream) {
@@ -173,11 +197,9 @@ extern "C" int fused_decode_fwd(const void* p, const void* frac_m, const void* f
     err = cudaFuncSetAttribute(fused_decode_fwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
     if (err != cudaSuccess) return int(err);
-    const long long tiles = (n_points + TILE - 1) / TILE;
-    if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-    const int n_tiles = int(tiles);
-    const int grid = n_tiles < n_sm ? n_tiles : n_sm;
-    fused_decode_fwd_kernel<<<grid, TILE, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+    const long long n_tiles = (n_points + NP - 1) / NP;
+    const int grid = n_tiles < n_sm ? int(n_tiles) : n_sm;
+    fused_decode_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(frac_m),
         static_cast<const float*>(frac_f), static_cast<const uint32_t*>(rows_m),
         static_cast<const uint32_t*>(rows_f), static_cast<const uint4*>(w_bf16),
@@ -185,8 +207,10 @@ extern "C" int fused_decode_fwd(const void* p, const void* frac_m, const void* f
     return int(cudaGetLastError());
 }
 
-// Sizes of the packed parameter buffers and the tile, for the wrapper's checks.
+// Sizes of the packed parameter buffers and the block shape, for the
+// wrapper's checks and the reports.
 extern "C" int fused_decode_w_bf16_elems() { return W_TOTAL; }
 extern "C" int fused_decode_w_f32_elems() { return F_TOTAL; }
-extern "C" int fused_decode_tile() { return TILE; }
+extern "C" int fused_decode_warps() { return WARPS; }
+extern "C" int fused_decode_warp_points() { return NP; }
 extern "C" int fused_decode_smem_bytes() { return int(SMEM_BYTES); }

@@ -5,9 +5,9 @@
 // For every query point it takes the cotangent g[4] of raw = (colour rgb,
 // middle + fine occupancy) and returns the cotangents of the point and of the
 // two fraction triples: dp[3], dfrac_m[3], dfrac_f[3]. Rows and decoder
-// weights are frozen and get nothing. The forward is recomputed per point
-// (fused_decode_common.cuh, the functions the forward kernel runs); no
-// activation touches device memory.
+// weights are frozen and get nothing. The forward is recomputed per tile by
+// the very device function the forward kernel runs (mlp_forward in
+// fused_decode_common.cuh); no activation touches device memory.
 //
 // What it computes is the gradient autograd gives for the plain PyTorch
 // version (ops/fused_decode.py::fused_decode_packed_plain):
@@ -25,120 +25,67 @@
 //     (the five feature injections, the two uses of the embedding) are f32.
 //     The weights in the transposed products are the forward's bf16 values.
 //
-// No activation is kept but the ReLU signs: there are no weight gradients, so
-// the reverse pass of one MLP needs the 32 cotangents of the hidden state
-// (registers), 5 x 32 sign bits (five registers) and cos(arg), which is
-// recomputed in the embedding loop. The transposed products need no
-// transposed weights: with W stored [in][out], dh_in[k] = dot(W[k][:], dh_out)
-// is one 32-wide weight row at one shared-memory address (a broadcast)
-// against the thread's registers. The result is indexed by k, so it is parked
-// in the thread's own shared-memory column (as bf16 pairs: the values are
-// bf16-rounded anyway, and the column is the one the forward parks its hidden
-// state in), then read back into registers at static indices. The embedding
-// cotangent needs the pre-activation cotangents of block 0 and block 3 at
-// once; block 3's stays in 32 more registers until the embedding loop.
-//
-// Phases per tile of FD_BWD_TILE points:
-//   A. corner reduction, one point per half-warp (as the forward);
-//   B. one point per thread: per MLP the forward recompute, then the reverse
-//      pass; the feature cotangents (96 f32 per point) are left in shared
-//      memory, dp is written;
-//   C. one point per half-warp again: the rows are read a second time (from
-//      L2, 1,536 B per point), dw8[k] = sum_c rows[k][c] * dfeat[c] is folded
-//      with the derivative of the corner weights per lane, and six values are
-//      reduced over the 16 lanes by shuffles.
-//
 // What bounds it on an H100: per point 1,588 B in and 36 B out against the
 // recomputed forward (50,816 multiply-adds with bf16 operands, 279 sines) and
 // 45,696 multiply-adds of the reverse pass (279 cosines). Every cotangent
 // that enters a transposed product, the head's apart, is a bf16 value
-// (rounded as said above), so the tensor cores could take those products
-// too: at N = 881,280 the operations come to 0.26 ms against 0.43 ms for the
-// bytes, and the floor is the bytes. (Taken as f32 values the cotangents
-// would run at the f32 rate outside the tensor cores: 1.38 ms.) This first
-// version does not come near that floor: it runs all products as FMA loops
-// on the CUDA cores, one thread per point, and the f32 feature cotangents
-// hold the tile to at most 160 points, so an SM runs only four or five
-// warps; it is bound by FMA throughput and latency. For later work: the products
-// on the tensor cores (wgmma on 64-point tiles, the reverse pass with the
-// bf16 cotangents it already has), the feature cotangents out of shared
-// memory so the tile can grow, the row gather inside the kernel.
+// (rounded as said above), so the tensor cores take those products: at
+// N = 881,280 the operations come to 0.26 ms against 0.43 ms for the bytes,
+// and the floor is the bytes. On the CUDA cores (f32 FMA, one thread per
+// point) the products alone would take 85 G multiply-adds at this size, about
+// 5 ms of instructions: they have to run on the tensor cores.
+//
+// Design: the forward kernel's block and warp shape (one persistent block per
+// SM, the weights resident in shared memory, FD_BWD_WARPS warps each walking
+// its own tiles of 16 x FD_BWD_MTILES points). Per tile:
+//   A. corner reduction into the warp's feature rows (as the forward);
+//   B. per MLP: the forward recompute on the tensor cores keeps only the ReLU
+//      signs (5 x 16 bits a lane per m16 tile); the head's cotangent is f32 on
+//      the CUDA cores and rounded to bf16; then the reverse pass on the
+//      tensor cores, every dh @ W^T from the same resident weights through
+//      plain ldmatrix, its result rounded to bf16 in registers and packed as
+//      the next A operand. The five feature-injection cotangents are each
+//      rounded and summed in f32 in accumulator fragments (for the fine MLP
+//      only its own first 32 channels: the middle copy is detached). The two
+//      embedding cotangents are rounded and added per n8 tile of the 96
+//      embedding columns, multiplied by cos(arg) at the lane's own positions
+//      (sin_cos again, as the sines of the recompute) and folded into dp, which
+//      is reduced over the quad by shuffles at the end. The feature cotangents
+//      go to the warp's own buffer (16 points x 96 f32 per m16 tile);
+//   C. one point per half-warp: the rows are read a second time (from L2,
+//      1,536 B per point), dw8[k] = sum_c rows[k][c] * dfeat[c] is folded
+//      with the derivative of the corner weights per lane, and six values are
+//      reduced over the 16 lanes by shuffles.
 
 #include "fused_decode_common.cuh"
 
-// Points per tile = threads per block. The per-point columns are 160 words
-// (48 features, 16 hidden pairs, 96 feature cotangents); 160 points is the
-// most that fits beside the weights. 128 was the fastest of 64..160 on an
-// H100 (scripts/tune_fused_decode.py --backward): one warp for each of the
-// SM's four schedulers, where 160 gives one scheduler two.
-#ifndef FD_BWD_TILE
-#define FD_BWD_TILE 128
+// Warps per block and m16 tiles per warp (scripts/tune_fused_decode.py
+// --backward). 12 warps of one m16 tile fill the block's shared memory (the
+// weights and 9,984 B a warp) and beat 8; two m16 tiles a warp spill.
+#ifndef FD_BWD_WARPS
+#define FD_BWD_WARPS 12
+#endif
+#ifndef FD_BWD_MTILES
+#define FD_BWD_MTILES 1
 #endif
 
 namespace {
 
 using namespace fd;
 
-constexpr int TILE = FD_BWD_TILE;
-constexpr int TP = TILE + 1;  // column stride in words (odd: no bank conflicts)
-constexpr int DFEAT_ROWS = 96;  // f32 cotangents of middle | fine | colour features
+constexpr int WARPS = FD_BWD_WARPS;
+constexpr int MT = FD_BWD_MTILES;
+constexpr int NP = 16 * MT;
+constexpr int THREADS = 32 * WARPS;
 
-constexpr size_t SMEM_FEAT = size_t(FEAT_ROWS) * TP * 4;
-constexpr size_t SMEM_HS = size_t(HS_ROWS) * TP * 4;
-constexpr size_t SMEM_DFEAT = size_t(DFEAT_ROWS) * TP * 4;
-constexpr size_t SMEM_BYTES = SMEM_W + SMEM_F + SMEM_FEAT + SMEM_HS + SMEM_DFEAT;
+// per-warp f32 feature cotangents, one row of 96 (+8 padding) per point
+constexpr int DFEAT_STRIDE = 104;
+constexpr size_t DFEAT_BYTES = size_t(NP) * DFEAT_STRIDE * 4;
+constexpr size_t WARP_BYTES = feat_bytes(MT) + DFEAT_BYTES;
+constexpr size_t SMEM_BYTES = SMEM_PARAMS + WARPS * WARP_BYTES;
 
-static_assert(TILE % 32 == 0 && TILE >= 32 && TILE <= 1024, "tile size");
+static_assert(WARPS >= 1 && WARPS <= 32 && MT >= 1 && MT <= 4, "block shape");
 static_assert(SMEM_BYTES <= SMEM_BLOCK_MAX, "exceeds a block's shared memory");
-
-// sum_j row[j] * d[j]: one row of 32 bf16 weights against 32 registers, in
-// four independent chains
-__device__ __forceinline__ float dot_row(const float (&d)[HID], const uint4* row) {
-    float s[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-        const uint4 v = row[q];
-        float t = bf_lo(v.x) * d[8 * q + 0];
-        t = fmaf(bf_hi(v.x), d[8 * q + 1], t);
-        t = fmaf(bf_lo(v.y), d[8 * q + 2], t);
-        t = fmaf(bf_hi(v.y), d[8 * q + 3], t);
-        t = fmaf(bf_lo(v.z), d[8 * q + 4], t);
-        t = fmaf(bf_hi(v.z), d[8 * q + 5], t);
-        t = fmaf(bf_lo(v.w), d[8 * q + 6], t);
-        t = fmaf(bf_hi(v.w), d[8 * q + 7], t);
-        s[q] = t;
-    }
-    return (s[0] + s[1]) + (s[2] + s[3]);
-}
-
-// d <- bf16(d @ W^T) for W [32][32]: the results go through the thread's
-// column as bf16 pairs and come back into the registers
-__device__ __forceinline__ void dense_t(float (&d)[HID], const __nv_bfloat16* w, uint32_t* col) {
-    const uint4* rows = reinterpret_cast<const uint4*>(w);
-#pragma unroll 2
-    for (int kk = 0; kk < HS_ROWS; ++kk) {
-        const float a = dot_row(d, rows + (2 * kk) * 4);
-        const float b = dot_row(d, rows + (2 * kk + 1) * 4);
-        col[kk * TP] = pack2(a, b);
-    }
-#pragma unroll
-    for (int jj = 0; jj < HS_ROWS; ++jj) {
-        const uint32_t w2 = col[jj * TP];
-        d[2 * jj] = bf_lo(w2);
-        d[2 * jj + 1] = bf_hi(w2);
-    }
-}
-
-// dcol[c] (+)= bf16(dot(fc_w[c][:], d)) for the MLP's own 32 feature channels
-__device__ __forceinline__ void dfeat_add(const float (&d)[HID], const __nv_bfloat16* wfc,
-                                          float* dcol, bool first) {
-    const uint4* rows = reinterpret_cast<const uint4*>(wfc);
-#pragma unroll 2
-    for (int c = 0; c < 32; ++c) {
-        const float v = bf16_round(dot_row(d, rows + c * 4));
-        dcol[c * TP] = first ? v : dcol[c * TP] + v;
-    }
-}
 
 // cotangents of the three fractions from the cotangents of the 8 corner
 // weights w[dz][dy][dx] = (wz * wy) * wx
@@ -165,127 +112,239 @@ __device__ __forceinline__ void corner_weights_bwd(const float* __restrict__ fra
     }
 }
 
-__global__ void __launch_bounds__(TILE, 1)
+// dp += B[:, k] * (bf16(d0 @ lin_w[0]^T) + bf16(d3 @ lin_w[3][:93]^T))[k] *
+// cos(p . B[:, k]) at the lane's own positions, one n8 tile of the 96
+// embedding columns at a time (MLP weights from row r0)
+template <int MT, bool FAR>
+__device__ __forceinline__ void embed_backward(uint32_t wsm, const float* B, int r0,
+                                               const float (&q)[MT][2][3],
+                                               const uint32_t (&d0)[MT][2][4],
+                                               const uint32_t (&d3)[MT][2][4],
+                                               float (&dp)[MT][2][3], int lane) {
+    const int t = lane & 3, mi = lane >> 3, rr = lane & 7;
+#pragma unroll 2
+    for (int j = 0; j < EMB_PAD / 8; ++j) {
+        uint32_t b0[4], b3[4];
+        ldsm_x4(wsm + w_off(r0 + R_EMB0 + 8 * j + rr, mi), b0);
+        ldsm_x4(wsm + w_off(r0 + R_EMB3 + 8 * j + rr, mi), b3);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            float c0[4] = {0.f, 0.f, 0.f, 0.f}, c3[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(c0, d0[mt][0], b0[0], b0[1]);
+            mma_bf16(c0, d0[mt][1], b0[2], b0[3]);
+            mma_bf16(c3, d3[mt][0], b3[0], b3[1]);
+            mma_bf16(c3, d3[mt][1], b3[2], b3[3]);
+            round2(c0[0], c0[1]);
+            round2(c0[2], c0[3]);
+            round2(c3[0], c3[1]);
+            round2(c3[2], c3[3]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int k = 8 * j + 2 * t + (e & 1);
+                if (k < EMB) {
+                    const int r = e >> 1;
+                    const float de = c3[e] + c0[e];
+                    const float darg = de * sin_cos<FAR>(embed_arg(q[mt][r], B, k), 1);
+                    dp[mt][r][0] = fmaf(B[k], darg, dp[mt][r][0]);
+                    dp[mt][r][1] = fmaf(B[EMB_PAD + k], darg, dp[mt][r][1]);
+                    dp[mt][r][2] = fmaf(B[2 * EMB_PAD + k], darg, dp[mt][r][2]);
+                }
+            }
+        }
+    }
+}
+
+// Forward recompute and reverse pass of MLP M for the warp's tiles: adds the
+// MLP's share of dp (per lane, before the quad reduction) and leaves its
+// feature cotangents in the warp's buffer, columns 32 M .. 32 M + 31.
+template <int M>
+__device__ __forceinline__ void mlp_backward(uint32_t wsm, const float* fsm, uint32_t feat_s,
+                                             float* dfeat, const float (&q)[MT][2][3],
+                                             const float4 (&gr)[MT][2], float (&dp)[MT][2][3],
+                                             int lane) {
+    constexpr int FEAT = (M == 1) ? 64 : 32;
+    const int r0 = (M == 0) ? ROW_MIDDLE : (M == 1 ? ROW_FINE : ROW_COLOR);
+    const float* F = fsm + M * F_MLP;
+    const int g = lane >> 2, t = lane & 3;
+
+    float dh[MT][4][4];
+    uint32_t sign[MT][5];
+    // the forward up to the last block's pre-activation; only the signs are
+    // kept (the head is linear, its input is not needed)
+    mlp_forward<M, MT, true>(wsm, fsm, feat_s, q, dh, sign, lane);
+
+    // cotangent of the head's input: occupancy for middle and fine, rgb for
+    // colour (its own occupancy is unused), f32, rounded to bf16
+    {
+        const float* ow = F + F_OUTW;
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+                const float4 w = *reinterpret_cast<const float4*>(ow + 4 * (8 * n + 2 * t + x));
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        const float4 go = gr[mt][r];
+                        float s;
+                        if (M == 2) {
+                            s = go.x * w.x;
+                            s = fmaf(go.y, w.y, s);
+                            s = fmaf(go.z, w.z, s);
+                        } else {
+                            s = go.w * w.x;
+                        }
+                        dh[mt][n][2 * r + x] = bf16_round(s);
+                    }
+            }
+    }
+
+    float df[MT][4][4];   // the MLP's own 32 feature cotangents
+    uint32_t da[MT][2][4], d3[MT][2][4];
+#pragma unroll
+    for (int blk = 4; blk >= 0; --blk) {
+        // h = relu(pre) + feat @ fc_w + fc_b: the injection's cotangent
+        to_a(dh, da);
+        {
+            float v[MT][4][4];
+            mma_wt<MT, 4>(v, da, wsm, r0 + R_FC + blk * FEAT, lane);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int n = 0; n < 4; ++n) {
+                    round2(v[mt][n][0], v[mt][n][1]);
+                    round2(v[mt][n][2], v[mt][n][3]);
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        df[mt][n][e] = (blk == 4) ? v[mt][n][e] : df[mt][n][e] + v[mt][n][e];
+                }
+        }
+        // through the ReLU
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    if (!((sign[mt][blk] >> (4 * n + e)) & 1u)) dh[mt][n][e] = 0.f;
+        to_a(dh, da);  // exact: bf16 values
+        if (blk == 3) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int s = 0; s < 2; ++s)
+#pragma unroll
+                    for (int i = 0; i < 4; ++i) d3[mt][s][i] = da[mt][s][i];
+        }
+        // pre = h_prev @ lin_w (+ emb @ lin_w[3][:93] at block 3)
+        if (blk > 0) {
+            mma_wt<MT, 4>(dh, da, wsm, r0 + R_HID + (blk - 1) * HID, lane);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int n = 0; n < 4; ++n) {
+                    round2(dh[mt][n][0], dh[mt][n][1]);
+                    round2(dh[mt][n][2], dh[mt][n][3]);
+                }
+        }
+    }
+
+    // embedding: da is block 0's pre-activation cotangent, d3 block 3's
+    if (near_range<M, MT>(fsm + F_TOTAL, q))
+        embed_backward<MT, false>(wsm, F + F_B, r0, q, da, d3, dp, lane);
+    else
+        embed_backward<MT, true>(wsm, F + F_B, r0, q, da, d3, dp, lane);
+
+    // the feature cotangents to the warp's buffer, rows g and g + 8
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            float* row = dfeat + (16 * mt + 8 * r + g) * DFEAT_STRIDE + 32 * M + 2 * t;
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+                *reinterpret_cast<float2*>(row + 8 * n) =
+                    make_float2(df[mt][n][2 * r], df[mt][n][2 * r + 1]);
+        }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
 fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ frac_m,
                         const float* __restrict__ frac_f, const uint32_t* __restrict__ rows_m,
                         const uint32_t* __restrict__ rows_f, const uint4* __restrict__ w_bf16,
                         const uint4* __restrict__ w_f32, const float4* __restrict__ g,
-                        float* __restrict__ dp, float* __restrict__ dfrac_m,
-                        float* __restrict__ dfrac_f, long long n_points, int n_tiles) {
+                        float* __restrict__ dp_out, float* __restrict__ dfrac_m,
+                        float* __restrict__ dfrac_f, long long n_points, long long n_tiles) {
     extern __shared__ __align__(16) unsigned char smem[];
-    const __nv_bfloat16* wsm = reinterpret_cast<const __nv_bfloat16*>(smem);
     const float* fsm = reinterpret_cast<const float*>(smem + SMEM_W);
-    uint32_t* feat = reinterpret_cast<uint32_t*>(smem + SMEM_W + SMEM_F);
-    uint32_t* hs = reinterpret_cast<uint32_t*>(smem + SMEM_W + SMEM_F + SMEM_FEAT);
-    float* dfeat = reinterpret_cast<float*>(smem + SMEM_W + SMEM_F + SMEM_FEAT + SMEM_HS);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    unsigned char* mine = smem + SMEM_PARAMS + warp * WARP_BYTES;
+    uint32_t* feat = reinterpret_cast<uint32_t*>(mine);
+    float* dfeat = reinterpret_cast<float*>(mine + feat_bytes(MT));
+    const uint32_t wsm = smem_u32(smem);
+    const uint32_t feat_s = smem_u32(feat);
+    const int hl = lane & 15;  // lane within the half-warp
 
-    const int tid = threadIdx.x;
-    const int hl = tid & 15;   // lane within the half-warp
-    const int grp = tid >> 4;  // half-warp index
-    constexpr int NGRP = TILE / 16;
-
-    stage_params<TILE>(smem, w_bf16, w_f32, tid);
+    stage_params<THREADS>(smem, w_bf16, w_f32, threadIdx.x);
     __syncthreads();
 
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const long long tile0 = (long long)tile * TILE;
+    for (long long tile = (long long)warp * gridDim.x + blockIdx.x; tile < n_tiles;
+         tile += (long long)gridDim.x * WARPS) {
+        const long long base = tile * NP;
 
-        // ---- phase A: corner reduction, one point per half-warp ----------
-        reduce_corners<TILE, TP>(feat, frac_m, frac_f, rows_m, rows_f, tile0, n_points, tid);
-        __syncthreads();
+        // ---- phase A: corner reduction into the warp's feature rows ------
+        reduce_corners<NP>(feat, frac_m, frac_f, rows_m, rows_f, base, n_points, lane);
+        __syncwarp();
 
-        // ---- phase B: forward recompute and reverse pass, one point per thread
-        const long long n = tile0 + tid;
-        if (n < n_points) {
-            const float px = p[n * 3 + 0], py = p[n * 3 + 1], pz = p[n * 3 + 2];
-            const float4 gn = g[n];
-            uint32_t* hcol = hs + tid;
-            float dpx = 0.f, dpy = 0.f, dpz = 0.f;
-
-#pragma unroll 1
-            for (int m = 0; m < 3; ++m) {
-                const MlpView v = mlp_view<TP>(m, wsm, fsm, feat, tid);
-                uint32_t sign[5] = {0u, 0u, 0u, 0u, 0u};
-                float dh[HID];
-                // the forward up to the last block's output; only the signs
-                // are kept (the head is linear, its input is not needed)
-                mlp_hidden<TP, true>(v, px, py, pz, hcol, dh, sign);
-
-                // cotangent of this MLP's head outputs: occupancy for middle
-                // and fine, rgb for colour (its own occupancy is unused)
-                const float go0 = (m == 2) ? gn.x : gn.w;
-                const float go1 = (m == 2) ? gn.y : 0.f;
-                const float go2 = (m == 2) ? gn.z : 0.f;
-                {
-                    const uint2* wo =
-                        reinterpret_cast<const uint2*>(v.W + W_FC + 5 * v.fc_stride);
+        // ---- phase B: forward recompute and reverse pass per MLP ---------
+        float q[MT][2][3];
+        load_points<MT>(p, base, n_points, lane, q);
+        float4 gr[MT][2];
+        float dp[MT][2][3];
 #pragma unroll
-                    for (int k = 0; k < HID; ++k) {
-                        const uint2 w = wo[k];
-                        float s = go0 * bf_lo(w.x);
-                        s = fmaf(go1, bf_hi(w.x), s);
-                        s = fmaf(go2, bf_lo(w.y), s);
-                        dh[k] = bf16_round(s);
-                    }
-                }
-
-                float d3[HID];  // cotangent of block 3's pre-activation
+        for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-                for (int j = 0; j < HID; ++j) d3[j] = 0.f;
-                float* dcol = dfeat + (m * 32) * TP + tid;
-
-#pragma unroll 1
-                for (int blk = 4; blk >= 0; --blk) {
-                    // h = relu(pre) + feat @ fc_w + fc_b
-                    dfeat_add(dh, v.W + W_FC + blk * v.fc_stride, dcol, blk == 4);
-                    uint32_t s = 0u;
-#pragma unroll
-                    for (int b = 0; b < 5; ++b) s = (b == blk) ? sign[b] : s;
-#pragma unroll
-                    for (int j = 0; j < HID; ++j) dh[j] = ((s >> j) & 1u) ? dh[j] : 0.f;
-                    if (blk == 3) {
-#pragma unroll
-                        for (int j = 0; j < HID; ++j) d3[j] = dh[j];
-                    }
-                    // pre = h_prev @ lin_w (+ emb @ lin_w[3][:93] at block 3)
-                    if (blk > 0) dense_t(dh, v.W + W_HID + (blk - 1) * HID * HID, hcol);
-                }
-
-                // embedding: dh is block 0's pre-activation cotangent
-                {
-                    const uint4* w0 = reinterpret_cast<const uint4*>(v.W + W_EMB0);
-                    const uint4* w3 = reinterpret_cast<const uint4*>(v.W + W_EMB3);
-                    const float* B = v.F + F_B;
-#pragma unroll 3
-                    for (int k = 0; k < EMB; ++k) {
-                        const float c = cosf(embed_arg(px, py, pz, B, k));
-                        const float de = bf16_round(dot_row(d3, w3 + k * 4)) +
-                                         bf16_round(dot_row(dh, w0 + k * 4));
-                        const float darg = de * c;
-                        dpx = fmaf(B[k], darg, dpx);
-                        dpy = fmaf(B[EMB + k], darg, dpy);
-                        dpz = fmaf(B[2 * EMB + k], darg, dpz);
-                    }
-                }
+            for (int r = 0; r < 2; ++r) {
+                const long long n = base + 16 * mt + 8 * r + (lane >> 2);
+                gr[mt][r] = n < n_points ? g[n] : make_float4(0.f, 0.f, 0.f, 0.f);
+                dp[mt][r][0] = dp[mt][r][1] = dp[mt][r][2] = 0.f;
             }
-            dp[n * 3 + 0] = dpx;
-            dp[n * 3 + 1] = dpy;
-            dp[n * 3 + 2] = dpz;
+        mlp_backward<0>(wsm, fsm, feat_s, dfeat, q, gr, dp, lane);
+        mlp_backward<1>(wsm, fsm, feat_s, dfeat, q, gr, dp, lane);
+        mlp_backward<2>(wsm, fsm, feat_s, dfeat, q, gr, dp, lane);
+        const int t = lane & 3;
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1)
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int r = 0; r < 2; ++r)
+#pragma unroll
+                    for (int a = 0; a < 3; ++a)
+                        dp[mt][r][a] += __shfl_xor_sync(0xffffffffu, dp[mt][r][a], off);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const int r = t & 1;  // lane t = 0 writes row g, lane t = 1 row g + 8
+            const long long n = base + 16 * mt + 8 * r + (lane >> 2);
+            if (t < 2 && n < n_points) {
+#pragma unroll
+                for (int a = 0; a < 3; ++a) dp_out[n * 3 + a] = dp[mt][r][a];
+            }
         }
-        __syncthreads();  // the feature cotangents are complete
+        __syncwarp();  // the feature cotangents are complete
 
         // ---- phase C: fractions, one point per half-warp -----------------
         // (every lane runs every iteration: the shuffles need the whole warp)
-        for (int i = grp; i < TILE; i += NGRP) {
-            const long long nn = tile0 + i;
+        for (int i = lane >> 4; i < NP; i += 2) {
+            const long long nn = base + i;
             const bool valid = nn < n_points;
             float gm[3] = {0.f, 0.f, 0.f}, gf[3] = {0.f, 0.f, 0.f};
             if (valid) {
-                const float dm0 = dfeat[(2 * hl) * TP + i], dm1 = dfeat[(2 * hl + 1) * TP + i];
-                const float df0 = dfeat[(32 + 2 * hl) * TP + i];
-                const float df1 = dfeat[(33 + 2 * hl) * TP + i];
-                const float dc0 = dfeat[(64 + 2 * hl) * TP + i];
-                const float dc1 = dfeat[(65 + 2 * hl) * TP + i];
+                const float* drow = dfeat + i * DFEAT_STRIDE + 2 * hl;
+                const float2 dm = *reinterpret_cast<const float2*>(drow);
+                const float2 dfn = *reinterpret_cast<const float2*>(drow + 32);
+                const float2 dc = *reinterpret_cast<const float2*>(drow + 64);
                 const uint32_t* rm = rows_m + nn * 128 + hl;
                 const uint32_t* rf = rows_f + nn * 256 + hl;
                 float dwm[8], dwf[8];
@@ -294,9 +353,9 @@ fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ f
                     const uint32_t vm = __ldg(rm + k * 16);
                     const uint32_t vf = __ldg(rf + k * 32);
                     const uint32_t vc = __ldg(rf + k * 32 + 16);
-                    dwm[k] = fmaf(bf_hi(vm), dm1, bf_lo(vm) * dm0);
-                    dwf[k] = fmaf(bf_hi(vc), dc1,
-                                  fmaf(bf_lo(vc), dc0, fmaf(bf_hi(vf), df1, bf_lo(vf) * df0)));
+                    dwm[k] = fmaf(bf_hi(vm), dm.y, bf_lo(vm) * dm.x);
+                    dwf[k] = fmaf(bf_hi(vc), dc.y,
+                                  fmaf(bf_lo(vc), dc.x, fmaf(bf_hi(vf), dfn.y, bf_lo(vf) * dfn.x)));
                 }
                 corner_weights_bwd(frac_m + nn * 3, dwm, gm);
                 corner_weights_bwd(frac_f + nn * 3, dwf, gf);
@@ -317,7 +376,7 @@ fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ f
                 }
             }
         }
-        __syncthreads();  // the next tile overwrites features and cotangents
+        __syncwarp();  // the next tile overwrites features and cotangents
     }
 }
 
@@ -341,11 +400,9 @@ extern "C" int fused_decode_bwd(const void* p, const void* frac_m, const void* f
     err = cudaFuncSetAttribute(fused_decode_bwd_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM_BYTES));
     if (err != cudaSuccess) return int(err);
-    const long long tiles = (n_points + TILE - 1) / TILE;
-    if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-    const int n_tiles = int(tiles);
-    const int grid = n_tiles < n_sm ? n_tiles : n_sm;
-    fused_decode_bwd_kernel<<<grid, TILE, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+    const long long n_tiles = (n_points + NP - 1) / NP;
+    const int grid = n_tiles < n_sm ? int(n_tiles) : n_sm;
+    fused_decode_bwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(frac_m),
         static_cast<const float*>(frac_f), static_cast<const uint32_t*>(rows_m),
         static_cast<const uint32_t*>(rows_f), static_cast<const uint4*>(w_bf16),
@@ -355,8 +412,10 @@ extern "C" int fused_decode_bwd(const void* p, const void* frac_m, const void* f
     return int(cudaGetLastError());
 }
 
-// Sizes of the packed parameter buffers and the tile, for the wrapper's checks.
+// Sizes of the packed parameter buffers and the block shape, for the
+// wrapper's checks and the reports.
 extern "C" int fused_decode_bwd_w_bf16_elems() { return W_TOTAL; }
 extern "C" int fused_decode_bwd_w_f32_elems() { return F_TOTAL; }
-extern "C" int fused_decode_bwd_tile() { return TILE; }
+extern "C" int fused_decode_bwd_warps() { return WARPS; }
+extern "C" int fused_decode_bwd_warp_points() { return NP; }
 extern "C" int fused_decode_bwd_smem_bytes() { return int(SMEM_BYTES); }

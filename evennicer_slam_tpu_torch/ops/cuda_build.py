@@ -131,6 +131,18 @@ def finish_build(handle: dict) -> str:
     return handle["lib"]
 
 
+def ptxas_usage(log: str) -> Dict[str, object]:
+    """Registers a thread and spill bytes (stores + loads) from what
+    ``-Xptxas -v`` printed for a library: the most registers of any function
+    and the spills of all of them; None where the log has no such line (a
+    library reused from an earlier build)."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in
+              re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return {"registers": max(regs) if regs else None,
+            "spill_bytes": sum(spills) if spills else None}
+
+
 def build_all(names: Sequence[str]) -> None:
     """Build several kernels side by side (one ``nvcc`` each, all started
     together) and wait for all of them."""

@@ -19,12 +19,15 @@ What bounds it on an H100, per point: 1,536 B of rows + 36 B of point and
 fractions in, 16 B out, against 101,632 FLOP of non-zero MLP work (50,816
 multiply-adds with bf16 operands) plus 279 sines. At N = 881,280 that is
 1.40 GB, 0.42 ms at 3.35 TB/s, against 0.09 ms at the bf16 tensor-core peak:
-the floor is the row traffic. The kernel as it stands is a first, simple
-version (one thread per point, FMA loops on the CUDA cores, the trio's bf16
-weights resident in shared memory) and is bound by f32 FMA throughput instead;
-its source lists what comes next. The TPU kernel's block-diagonal stacking
-of the three MLPs (``build_batched_params``) is not ported: it exists to fill
-a 128x128 matrix unit and triples the weights with zeros.
+the floor is the row traffic. Both kernels run every MLP product on the
+tensor cores (``mma.sync`` m16n8k16, bf16 operands, f32 accumulators) against
+the trio's bf16 weights resident in shared memory, one persistent block per
+SM whose warps each walk their own 16-point tiles; what is left on the CUDA
+cores is the sines (and the backward's cosines), the corner reductions and
+the fragment epilogues. ``csrc/fused_decode_common.cuh`` sets out the design.
+The TPU kernel's block-diagonal stacking of the three MLPs
+(``build_batched_params``) is not ported: it exists to fill a 128x128 matrix
+unit and triples the weights with zeros.
 
 Numerics, identical in the kernels and the plain versions: operands of every
 MLP product rounded to bf16, f32 accumulation; embedding product, sine and
@@ -180,26 +183,50 @@ def fused_decode_bwd_plain(
 # the CUDA kernels and their wrappers
 # ---------------------------------------------------------------------------
 
+# Layout of the two packed buffers the kernels read (the same constants are
+# in csrc/fused_decode_common.cuh). w16: bf16 rows of 32 values; per MLP the
+# embedding weights lin_w[0] and lin_w[3][:93], each padded to 96 rows with
+# zeros, the hidden weights lin_w[1], lin_w[2], lin_w[3][93:], lin_w[4], then
+# fc_w[0..4] ([F, 32] each). f32: per MLP B [3, 96] (columns 93.. zero),
+# lin_b [5, 32], fc_b [5, 32], out_w [32, 4] as bf16 values and out_b [4]
+# (columns past the MLP's own outputs zero).
+EMB_PAD = 96
+W_ROW0 = {"middle": 0, "fine": 480, "color": 1120}  # first w16 row of each MLP
+W_ROWS = 1600
+R_EMB0, R_EMB3, R_HID, R_FC = 0, EMB_PAD, 2 * EMB_PAD, 2 * EMB_PAD + 4 * HIDDEN
+F_MLP = 740
+F_B, F_LINB, F_FCB, F_OUTW, F_OUTB = 0, 288, 448, 608, 736
+
+
 def pack_trio_weights(decoders: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The trio's parameters in the kernel's two flat buffers: every product
-    weight as bf16 (per MLP: lin_w[0], lin_w[3][:93], lin_w[1], lin_w[2],
-    lin_w[3][93:], lin_w[4], fc_w[0..4], out_w padded to [32, 4]) and the f32
-    rest (per MLP: B padded to 280, lin_b, fc_b, out_b padded to 4)."""
-    w16, f32 = [], []
-    for name in _TRIO:
-        m = decoders[name]
-        w3 = m["lin_w"][3]
-        out_w = m["out_w"]
-        out_w4 = out_w.new_zeros((HIDDEN, 4))
-        out_w4[:, : out_w.shape[1]] = out_w
-        out_b4 = out_w.new_zeros((4,))
-        out_b4[: out_w.shape[1]] = m["out_b"]
-        w16 += [m["lin_w"][0], w3[:EMB], m["lin_w"][1], m["lin_w"][2], w3[EMB:],
-                m["lin_w"][4], *m["fc_w"], out_w4]
-        f32 += [m["B"], out_w.new_zeros((1,)), *m["lin_b"], *m["fc_b"], out_b4]
-    w16 = torch.cat([w.detach().reshape(-1).to(torch.bfloat16) for w in w16])
-    f32 = torch.cat([w.detach().reshape(-1).to(torch.float32) for w in f32])
-    return w16, f32
+    """The trio's parameters in the kernels' two flat buffers (layout above):
+    ``w16`` bf16 ``[1600 * 32]``, ``f32`` float32 ``[3 * 740]``. Every padding
+    value is zero."""
+    dev = decoders["middle"]["B"].device
+    w16 = torch.zeros((W_ROWS, HIDDEN), dtype=torch.bfloat16, device=dev)
+    f32 = torch.zeros((len(_TRIO), F_MLP), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for i, name in enumerate(_TRIO):
+            m = decoders[name]
+            r = W_ROW0[name]
+            lin_w = m["lin_w"]
+            w16[r + R_EMB0 : r + R_EMB0 + EMB] = lin_w[0]
+            w16[r + R_EMB3 : r + R_EMB3 + EMB] = lin_w[3][:EMB]
+            for j, w in enumerate((lin_w[1], lin_w[2], lin_w[3][EMB:], lin_w[4])):
+                w16[r + R_HID + HIDDEN * j : r + R_HID + HIDDEN * (j + 1)] = w
+            feat = m["fc_w"][0].shape[0]
+            for j, w in enumerate(m["fc_w"]):
+                w16[r + R_FC + feat * j : r + R_FC + feat * (j + 1)] = w
+            f = f32[i]
+            f[F_B : F_B + 3 * EMB_PAD].view(3, EMB_PAD)[:, :EMB] = m["B"]
+            f[F_LINB : F_LINB + 5 * HIDDEN] = torch.cat(list(m["lin_b"]))
+            f[F_FCB : F_FCB + 5 * HIDDEN] = torch.cat(list(m["fc_b"]))
+            out_w = m["out_w"]
+            n_out = out_w.shape[1]
+            f[F_OUTW : F_OUTW + 4 * HIDDEN].view(HIDDEN, 4)[:, :n_out] = \
+                out_w.bfloat16().float()
+            f[F_OUTB : F_OUTB + n_out] = m["out_b"]
+    return w16.reshape(-1), f32.reshape(-1)
 
 
 def declare_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -210,7 +237,8 @@ def declare_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
                                      ctypes.c_longlong, vp]
     lib.fused_decode_fwd.restype = ctypes.c_int
     for fn in (lib.fused_decode_w_bf16_elems, lib.fused_decode_w_f32_elems,
-               lib.fused_decode_tile, lib.fused_decode_smem_bytes):
+               lib.fused_decode_warps, lib.fused_decode_warp_points,
+               lib.fused_decode_smem_bytes):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     return lib
@@ -231,7 +259,8 @@ def declare_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_decode_bwd.argtypes = [vp] * 11 + [ctypes.c_longlong, vp]
     lib.fused_decode_bwd.restype = ctypes.c_int
     for fn in (lib.fused_decode_bwd_w_bf16_elems, lib.fused_decode_bwd_w_f32_elems,
-               lib.fused_decode_bwd_tile, lib.fused_decode_bwd_smem_bytes):
+               lib.fused_decode_bwd_warps, lib.fused_decode_bwd_warp_points,
+               lib.fused_decode_bwd_smem_bytes):
         fn.argtypes = []
         fn.restype = ctypes.c_int
     return lib

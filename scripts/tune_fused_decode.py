@@ -1,17 +1,18 @@
 #!/usr/bin/env python3
 """Time variants of the fused decode kernels on one NVIDIA GPU.
 
-    python3 scripts/tune_fused_decode.py [--tiles 128 192 256 320 384 448]
-    python3 scripts/tune_fused_decode.py --backward [--tiles 64 96 128 160]
+    python3 scripts/tune_fused_decode.py [--shapes 8x1 12x1 16x1]
+    python3 scripts/tune_fused_decode.py --backward [--shapes 8x1 12x1]
 
 Builds ``evennicer_slam_tpu_torch/csrc/fused_decode.cu`` (or, with
-``--backward``, ``fused_decode_bwd.cu``) once per tile size (``-DFD_TILE=<n>``
-/ ``-DFD_BWD_TILE=<n>``: points per tile = threads per block; all builds
-started together), checks each variant against the plain PyTorch version at
+``--backward``, ``fused_decode_bwd.cu``) once per block shape ``WxM``: W warps
+a block, M m16 tiles (16 points each) a warp (``-DFD_WARPS=W -DFD_MTILES=M``,
+``-DFD_BWD_WARPS`` / ``-DFD_BWD_MTILES`` for the backward; all builds started
+together), checks each variant against the plain PyTorch version at
 N = 881,280 and times the kernel alone with CUDA events, in two rounds so the
-spread shows. Prints registers and spills from ptxas beside each time. A tile
-that does not fit a block's shared memory fails its ``static_assert`` and is
-reported as such.
+spread shows. Prints registers and spills from ptxas beside each time. A
+shape that does not fit a block's shared memory fails its ``static_assert``
+and is reported as such.
 """
 
 import argparse
@@ -29,30 +30,34 @@ from evennicer_slam_tpu_torch.ops import cuda_build, fused_decode  # noqa: E402
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--backward", action="store_true",
-                    help="tune the backward kernel (default tiles 64 96 128 160)")
-    ap.add_argument("--tiles", type=int, nargs="+", default=None)
+                    help="tune the backward kernel (default shapes 8x1 12x1)")
+    ap.add_argument("--shapes", nargs="+", default=None,
+                    help="block shapes WxM: W warps a block, M m16 tiles a warp")
     ap.add_argument("--iters", type=int, default=10)
     opts = ap.parse_args()
-    if opts.tiles is None:
-        opts.tiles = [64, 96, 128, 160] if opts.backward else [128, 192, 256, 320, 384, 448]
+    if opts.shapes is None:
+        opts.shapes = ["8x1", "12x1"] if opts.backward else ["8x1", "12x1", "16x1"]
     name = "fused_decode_bwd" if opts.backward else "fused_decode"
-    macro = "FD_BWD_TILE" if opts.backward else "FD_TILE"
+    prefix = "FD_BWD_" if opts.backward else "FD_"
     declare = (fused_decode.declare_bwd_signatures if opts.backward
                else fused_decode.declare_signatures)
     dev = torch.device("cuda")
     print(f"device: {cs.nvidia_smi_line()}", flush=True)
     cs.setup_torch(verbose=False)
-    flags = {t: (f"-D{macro}={t}",) for t in opts.tiles}
+    flags = {}
+    for shape in opts.shapes:
+        w, m = shape.split("x")
+        flags[shape] = (f"-D{prefix}WARPS={int(w)}", f"-D{prefix}MTILES={int(m)}")
     handles = {t: cuda_build.start_build(name, f) for t, f in flags.items()}
     libs, logs = {}, {}
     for t, h in handles.items():
         try:
             cuda_build.finish_build(h)
         except RuntimeError as e:
-            print(f"{macro}={t}: does not build: "
+            print(f"{t}: does not build: "
                   + next((ln for ln in str(e).splitlines() if "error" in ln), str(e)[:200]),
                   flush=True)
-            opts.tiles = [x for x in opts.tiles if x != t]
+            opts.shapes = [x for x in opts.shapes if x != t]
             continue
         logs[t] = [ln.strip() for ln in str(cuda_build.BUILD_LOG[name]["ptxas"])
                    .splitlines() if "registers" in ln or "spill" in ln]
@@ -66,24 +71,24 @@ def main():
         g = torch.randn(cs.N_MAIN, 4, device=dev, generator=torch.Generator(dev).manual_seed(0))
         ref = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=cs.BWD_PLAIN_CHUNK)
         for rnd in (1, 2):
-            for t in (opts.tiles if rnd == 1 else opts.tiles[::-1]):
+            for t in (opts.shapes if rnd == 1 else opts.shapes[::-1]):
                 run = lambda: fused_decode.launch_fused_decode_bwd(
                     *args, w16, f32, g, lib=libs[t])
                 rel = max(float((o - r).norm() / r.norm()) for o, r in zip(run(), ref))
                 ms = cs.cuda_ms(run, opts.iters)
-                print(f"round {rnd}  FD_BWD_TILE={t:4d}  smem "
+                print(f"round {rnd}  {t:>5s}  smem "
                       f"{libs[t].fused_decode_bwd_smem_bytes():6d} B  {ms:7.3f} ms  "
                       f"max rel norm err {rel:.2e}  {' | '.join(logs[t])}", flush=True)
         return
     with torch.no_grad():
         ref = fused_decode.fused_decode_packed_plain(decoders, *args)
         for rnd in (1, 2):
-            order = opts.tiles if rnd == 1 else opts.tiles[::-1]
+            order = opts.shapes if rnd == 1 else opts.shapes[::-1]
             for t in order:
                 run = lambda: fused_decode.launch_fused_decode_fwd(*args, w16, f32, lib=libs[t])
                 err = float((run() - ref).abs().max())
                 ms = cs.cuda_ms(run, opts.iters)
-                print(f"round {rnd}  FD_TILE={t:4d}  smem {libs[t].fused_decode_smem_bytes():6d} B"
+                print(f"round {rnd}  {t:>5s}  smem {libs[t].fused_decode_smem_bytes():6d} B"
                       f"  {ms:7.3f} ms  max abs err {err:.2e}  {' | '.join(logs[t])}", flush=True)
 
 

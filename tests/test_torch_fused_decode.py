@@ -249,19 +249,96 @@ def test_unsupported_trio_runs_as_separate_ops(scene):
 
 def test_pack_trio_weights_layout(scene):
     w16, f32 = tf.pack_trio_weights(scene["dt"])
-    assert w16.dtype == torch.bfloat16 and w16.shape == (51008,)
-    assert f32.dtype == torch.float32 and f32.shape == (1812,)
+    assert w16.dtype == torch.bfloat16 and w16.shape == (51200,)
+    assert f32.dtype == torch.float32 and f32.shape == (2220,)
+    rows = w16.reshape(1600, 32)
     m = scene["dt"]["middle"]
-    assert torch.equal(w16[: 93 * 32], m["lin_w"][0].bfloat16().reshape(-1))
-    assert torch.equal(w16[93 * 32 : 2 * 93 * 32], m["lin_w"][3][:93].bfloat16().reshape(-1))
-    fine0 = 2 * 93 * 32 + 4 * 1024 + 5 * 32 * 32 + 128
-    assert torch.equal(w16[fine0 : fine0 + 93 * 32],
-                       scene["dt"]["fine"]["lin_w"][0].bfloat16().reshape(-1))
-    assert torch.equal(f32[:279], m["B"].reshape(-1))
-    assert torch.equal(f32[280:312], m["lin_b"][0])
+    assert torch.equal(rows[:93], m["lin_w"][0].bfloat16())
+    assert torch.equal(rows[96:189], m["lin_w"][3][:93].bfloat16())
+    assert torch.equal(rows[192 + 64 : 192 + 96], m["lin_w"][3][93:].bfloat16())
+    assert torch.equal(rows[320:352], m["fc_w"][0].bfloat16())
+    fine0 = 2 * 96 + 4 * 32 + 5 * 32
+    assert fine0 == tf.W_ROW0["fine"]
+    assert torch.equal(rows[fine0 : fine0 + 93], scene["dt"]["fine"]["lin_w"][0].bfloat16())
+    assert torch.equal(rows[fine0 + 320 + 4 * 64 : fine0 + 320 + 5 * 64],
+                       scene["dt"]["fine"]["fc_w"][4].bfloat16())
+    assert tf.W_ROW0["color"] + 2 * 96 + 4 * 32 + 5 * 32 == 1600
+    assert torch.equal(f32[:93], m["B"][0]) and torch.equal(f32[96:189], m["B"][1])
+    assert torch.equal(f32[288:320], m["lin_b"][0])
+    assert torch.equal(f32[448 + 4 * 32 : 608], m["fc_b"][4])
     c = scene["dt"]["color"]
-    assert torch.equal(f32[2 * 604 + 600 : 2 * 604 + 604], c["out_b"])
-    assert torch.equal(w16[-128:].reshape(32, 4), c["out_w"].bfloat16())
+    assert torch.equal(f32[2 * 740 + 736 : 2 * 740 + 740], c["out_b"])
+    assert torch.equal(f32[2 * 740 + 608 : 2 * 740 + 736].reshape(32, 4),
+                       c["out_w"].bfloat16().float())
+
+
+def _unpack_trio(w16, f32):
+    """The trio read back out of the two packed buffers by the layout's
+    offsets, in the decoders' own layout (f32 tensors of the bf16 values)."""
+    rows = w16.float().reshape(tf.W_ROWS, tf.HIDDEN)
+    f = f32.reshape(3, tf.F_MLP)
+    out = {}
+    for i, (name, feat, n_out) in enumerate((("middle", 32, 1), ("fine", 64, 1),
+                                             ("color", 32, 4))):
+        r = tf.W_ROW0[name]
+        hid = [rows[r + tf.R_HID + 32 * j : r + tf.R_HID + 32 * (j + 1)] for j in range(4)]
+        lin3 = torch.cat([rows[r + tf.R_EMB3 : r + tf.R_EMB3 + tf.EMB], hid[2]])
+        out[name] = {
+            "B": f[i, tf.F_B : tf.F_B + 3 * tf.EMB_PAD].reshape(3, tf.EMB_PAD)[:, : tf.EMB],
+            "lin_w": [rows[r + tf.R_EMB0 : r + tf.R_EMB0 + tf.EMB], hid[0], hid[1], lin3, hid[3]],
+            "lin_b": list(f[i, tf.F_LINB : tf.F_LINB + 160].reshape(5, 32)),
+            "fc_w": [rows[r + tf.R_FC + feat * j : r + tf.R_FC + feat * (j + 1)]
+                     for j in range(5)],
+            "fc_b": list(f[i, tf.F_FCB : tf.F_FCB + 160].reshape(5, 32)),
+            "out_w": f[i, tf.F_OUTW : tf.F_OUTW + 128].reshape(32, 4)[:, :n_out],
+            "out_b": f[i, tf.F_OUTB : tf.F_OUTB + n_out],
+        }
+    return out
+
+
+def test_packed_buffers_hold_the_trio(scene):
+    """What the kernels read: the trio taken back out of ``w16`` / ``f32`` by
+    the layout's offsets gives the plain version's numbers exactly, and every
+    padding value is zero."""
+    w16, f32 = tf.pack_trio_weights(scene["dt"])
+    back = _unpack_trio(w16, f32)
+    args = _decode_args(scene, t(scene["p"]))
+    assert torch.equal(tf.fused_decode_packed_plain(back, *args),
+                       tf.fused_decode_packed_plain(scene["dt"], *args))
+    rows = w16.float().reshape(tf.W_ROWS, tf.HIDDEN)
+    f = f32.reshape(3, tf.F_MLP)
+    for i, (name, n_out) in enumerate((("middle", 1), ("fine", 1), ("color", 4))):
+        r = tf.W_ROW0[name]
+        assert not rows[r + tf.EMB : r + tf.EMB_PAD].any()
+        assert not rows[r + tf.R_EMB3 + tf.EMB : r + tf.R_EMB3 + tf.EMB_PAD].any()
+        assert not f[i, : 3 * tf.EMB_PAD].reshape(3, tf.EMB_PAD)[:, tf.EMB :].any()
+        assert not f[i, tf.F_OUTW : tf.F_OUTW + 128].reshape(32, 4)[:, n_out:].any()
+        assert not f[i, tf.F_OUTB + n_out : tf.F_MLP].any()
+
+
+def test_summation_order_alone_flips_bf16_roundings():
+    """Why the kernel checks on the card measure their outlier allowance: the
+    plain version sums each product in one order, the tensor cores in
+    another. Two f32 sums of the same exact bf16 products, in two orders,
+    round to different bf16 values for some share of the outputs, although
+    both lie within a few ulp of the exact sum; each such flip changes a
+    hidden unit by one part in 256."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.standard_normal((4096, 96)).astype(np.float32)).bfloat16().float()
+    w = torch.from_numpy(0.2 * rng.standard_normal((96, 32)).astype(np.float32)).bfloat16().float()
+    exact = (a.double() @ w.double()).float()
+    fwd = torch.zeros(4096, 32)
+    for k in range(96):  # the products are exact in f32: a sum in k order
+        fwd = fwd + a[:, k : k + 1] * w[k]
+    rev = torch.zeros(4096, 32)
+    for k in reversed(range(96)):
+        rev = rev + a[:, k : k + 1] * w[k]
+    bound = 96 * 2.0**-24 * (a.abs() @ w.abs())  # the textbook bound of an f32 sum
+    for s in (fwd, rev):
+        assert bool(((s - exact).abs() <= bound).all())
+    flips = int((fwd.bfloat16() != rev.bfloat16()).sum())
+    flips_exact = int((fwd.bfloat16() != exact.bfloat16()).sum())
+    assert 0 < flips < 0.01 * fwd.numel() and flips_exact > 0, (flips, flips_exact)
 
 
 @pytest.mark.cuda
