@@ -88,3 +88,33 @@ def adam_state_from_numpy(m: Any, v: Any, t: Any, device=None):
 
     return AdamState(m_t, v_t, as_int(t_t))
 
+
+
+def mapper_adam_state_from_numpy(m: Any, v: Any, t: Any, device=None):
+    """The Adam state of a mapping call, ``AdamState(m, v, t)`` over the
+    parameter tuple ``(grids, decoders, cam_tensors)`` with a per-leaf step
+    count, its leaves as numpy arrays -> the port's ``AdamState`` with the
+    same tuple at the top (``adam_state_from_numpy`` turns tuples into
+    lists)."""
+    from evennicer_slam_tpu_torch.utils.optim import AdamState
+
+    state = adam_state_from_numpy(m, v, t, device)
+    return AdamState(*(tuple(x) if isinstance(x, list) else x for x in state))
+
+
+def keyframe_store_from_numpy(frames, poses=None, device=None):
+    """A keyframe registry of the JAX package -> the port's
+    ``KeyframeStore``. ``frames`` is the JAX store's ``frames`` list (dicts
+    of ``idx``, ``color``, ``depth``, ``event``, ``est_c2w``, ``gt_c2w``,
+    host arrays); ``poses`` [N, 4, 4] its device pose stack where that is
+    the truth (``host_poses_stale``), else None."""
+    from evennicer_slam_tpu_torch.slam.keyframes import KeyframeStore
+
+    store = KeyframeStore(device=device)
+    for f in frames:
+        store.append(int(f["idx"]), np.asarray(f["color"]), np.asarray(f["depth"]),
+                     np.asarray(f["event"]), np.asarray(f["est_c2w"], np.float32),
+                     np.asarray(f["gt_c2w"], np.float32))
+    if poses is not None:
+        store.set_poses_device(tensor_from_numpy(np.asarray(poses, np.float32), store.device))
+    return store

@@ -12,6 +12,27 @@ from typing import Tuple
 import torch
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """``torch.cumprod`` for inputs known to be nonzero. Autograd's own
+    backward of ``cumprod`` first asks whether any input is zero, which
+    reads a value back from the card and so waits for every queued launch;
+    here the answer is known, and the backward is the formula autograd uses
+    for nonzero inputs (the same values, bit for bit)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, dim: int) -> torch.Tensor:
+        out = torch.cumprod(x, dim=dim)
+        ctx.save_for_backward(x, out)
+        ctx.dim = dim
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, out = ctx.saved_tensors
+        w = out * grad
+        return w.flip(ctx.dim).cumsum(ctx.dim).flip(ctx.dim).div(x), None
+
+
 def composite_rays(
     raw: torch.Tensor,
     z_vals: torch.Tensor,
@@ -40,10 +61,10 @@ def composite_rays(
         dists = dists * torch.linalg.norm(rays_d[..., None, :], dim=-1)
         alpha = 1.0 - torch.exp(-torch.clamp(raw[..., -1], min=0.0) * dists)
 
-    # transmittance: cumprod of (1 - alpha + 1e-10), exclusive
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1),
-        dim=-1,
+    # transmittance: cumprod of (1 - alpha + 1e-10), exclusive; every factor
+    # is at least 1e-10
+    trans = _PositiveCumprod.apply(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), -1,
     )[..., :-1]
     weights = alpha * trans
 

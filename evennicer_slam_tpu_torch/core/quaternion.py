@@ -1,11 +1,14 @@
 """Quaternion <-> rotation-matrix conversion, differentiable both ways
 (counterpart of ``evennicer_slam_tpu/core/quaternion.py``).
 
-Camera pose tensor layout: ``[qw, qx, qy, qz, tx, ty, tz]``.
+Camera pose tensor layout: ``[qw, qx, qy, qz, tx, ty, tz]``. The ``_np``
+functions are numpy twins for host-side pose bookkeeping (the mapper's
+host window assembly and BA write-back).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -98,3 +101,65 @@ def tensor_from_pose_matrix(RT: torch.Tensor, t_first: bool = False) -> torch.Te
     if t_first:
         return torch.cat([t, quad], dim=-1)
     return torch.cat([quad, t], dim=-1)
+
+
+def rotation_to_quat_np(R) -> np.ndarray:
+    """Numpy twin of :func:`rotation_to_quat` (float64 inside)."""
+    R = np.asarray(R, np.float64)
+    m00, m11, m22 = R[0, 0], R[1, 1], R[2, 2]
+    tr = m00 + m11 + m22
+    if tr > 0:
+        qw = np.sqrt(max(1.0 + tr, 1e-12)) / 2
+        q = np.array([
+            qw,
+            (R[2, 1] - R[1, 2]) / (4 * qw),
+            (R[0, 2] - R[2, 0]) / (4 * qw),
+            (R[1, 0] - R[0, 1]) / (4 * qw),
+        ])
+    elif m00 >= m11 and m00 >= m22:
+        qx = np.sqrt(max(1.0 + m00 - m11 - m22, 1e-12)) / 2
+        q = np.array([
+            (R[2, 1] - R[1, 2]) / (4 * qx), qx,
+            (R[0, 1] + R[1, 0]) / (4 * qx), (R[0, 2] + R[2, 0]) / (4 * qx),
+        ])
+    elif m11 >= m22:
+        qy = np.sqrt(max(1.0 - m00 + m11 - m22, 1e-12)) / 2
+        q = np.array([
+            (R[0, 2] - R[2, 0]) / (4 * qy),
+            (R[0, 1] + R[1, 0]) / (4 * qy), qy,
+            (R[1, 2] + R[2, 1]) / (4 * qy),
+        ])
+    else:
+        qz = np.sqrt(max(1.0 - m00 - m11 + m22, 1e-12)) / 2
+        q = np.array([
+            (R[1, 0] - R[0, 1]) / (4 * qz),
+            (R[0, 2] + R[2, 0]) / (4 * qz),
+            (R[1, 2] + R[2, 1]) / (4 * qz), qz,
+        ])
+    q = q / np.linalg.norm(q)
+    if q[0] < 0:
+        q = -q
+    return q
+
+
+def tensor_from_pose_matrix_np(RT, t_first: bool = False) -> np.ndarray:
+    """Numpy twin of :func:`tensor_from_pose_matrix` (-> float32 [7])."""
+    RT = np.asarray(RT)
+    q = rotation_to_quat_np(RT[:3, :3])
+    t = RT[:3, 3]
+    out = np.concatenate([t, q]) if t_first else np.concatenate([q, t])
+    return out.astype(np.float32)
+
+
+def pose_matrix_from_tensor_np(vec) -> np.ndarray:
+    """Numpy twin of :func:`pose_matrix_from_tensor` (-> float32 [3, 4])."""
+    vec = np.asarray(vec, np.float64)
+    q, t = vec[:4], vec[4:]
+    qr, qi, qj, qk = q
+    two_s = 2.0 / np.dot(q, q)
+    R = np.array([
+        [1 - two_s * (qj**2 + qk**2), two_s * (qi * qj - qk * qr), two_s * (qi * qk + qj * qr)],
+        [two_s * (qi * qj + qk * qr), 1 - two_s * (qi**2 + qk**2), two_s * (qj * qk - qi * qr)],
+        [two_s * (qi * qk - qj * qr), two_s * (qj * qk + qi * qr), 1 - two_s * (qi**2 + qj**2)],
+    ])
+    return np.concatenate([R, t[:, None]], axis=1).astype(np.float32)

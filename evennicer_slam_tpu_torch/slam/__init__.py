@@ -1,1 +1,1 @@
-"""Tracking-side SLAM modules (counterpart of ``evennicer_slam_tpu/slam``)."""
+"""Tracking and mapping (counterpart of ``evennicer_slam_tpu/slam``)."""

@@ -6,11 +6,14 @@
 Builds the same full-width scene and frames as ``chip_smoke.py`` (it imports
 them from there), then for ``tracking_loss`` (event only, and RGB-D + event),
 for one tracked frame (``track_frame``: ten iterations of forward, backward
-and Adam; event only, and RGB-D + event) and for one ``render_img``:
+and Adam; event only, and RGB-D + event), for one ``render_img`` and for one
+steady mapping call (``Mapper.optimize_map``: 60 iterations, a K = 5 window
+selected on the device, BA, the coarse mapper fused, from a device pose):
   - times the call on the host clock around ``torch.cuda.synchronize()``,
   - traces it with ``torch.profiler`` and prints device time by kernel name,
     the sum of device time and its share of the wall time (the rest is the
-    device waiting for the host).
+    device waiting for the host), and the host's stream synchronisations
+    (``cudaStreamSynchronize``) inside the call.
 Needs a CUDA device; prints the card's name and power limit first.
 """
 
@@ -47,7 +50,10 @@ def device_table(fn, iters, top):
             fn()
         torch.cuda.synchronize()
     rows = []
+    syncs = 0
     for e in prof.key_averages():
+        if e.key == "cudaStreamSynchronize":
+            syncs += e.count / iters
         # device-side events only (kernels and copies): the operators that
         # launched them carry the same time again
         if e.device_type != DeviceType.CUDA:
@@ -60,7 +66,7 @@ def device_table(fn, iters, top):
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
     lines = [f"  {ms:9.3f} ms  {cnt:7.1f} x  {name[:110]}" for ms, cnt, name in rows[:top]]
-    return total, sum(r[1] for r in rows), lines
+    return total, sum(r[1] for r in rows), lines, syncs
 
 
 def main():
@@ -126,6 +132,18 @@ def main():
             torch.zeros(7, device=dev), 1.0, mp.tcfg, cam, settings, rgbd=rgbd, event=True,
             const_speed=False)
 
+    # one steady mapping call from the state chip_smoke.py checks card vs CPU:
+    # keyframes at frames 0, 5, ..., 20, frame 25 mapped from its device pose
+    mframes = cs.room_frames(cam, dev, cs.MAP_FRAMES)
+    mapper, m_grids, m_decoders, mf, m_pose = cs.steady_mapping_state(cfg, cam, dev, mframes)
+    mcfg = mapper.cfg
+
+    def map_call():
+        return mapper.optimize_map(mcfg.iters, mcfg.lr_factor, mf.index, mf.np.color,
+                                   mf.np.depth, mf.np.event, m_pose, seed=mf.index * 97,
+                                   grids=m_grids, decoders=m_decoders,
+                                   cur_images_dev=(mf.color, mf.depth))
+
     for name, fn, iters in (
         ("tracking_loss, event only", lambda: score(False), opts.iters),
         ("tracking_loss, RGB-D + event", lambda: score(True), opts.iters),
@@ -133,12 +151,15 @@ def main():
         (f"track_frame, RGB-D + event ({mp.tcfg.iters} iterations)", lambda: track(True), 2),
         ("EventNet inference_event 102x180 alone", eventnet_only, opts.iters),
         ("render_img 680x1200", render, 2),
+        (f"Mapper.optimize_map, steady ({mcfg.iters} iterations, K = {mcfg.window_size}, "
+         f"BA, coarse fused, device pose)", map_call, 2),
     ):
         ms = wall_ms(fn, iters)
-        total, n_kernels, lines = device_table(fn, iters, opts.top)
+        total, n_kernels, lines, syncs = device_table(fn, iters, opts.top)
         say(f"\n== {name}: {ms:.2f} ms wall per call; device busy {total:.2f} ms "
             f"({100 * total / ms:.0f} % of the wall time, idle {100 * (1 - total / ms):.0f} %) "
-            f"in {n_kernels:.0f} kernels and copies")
+            f"in {n_kernels:.0f} kernels and copies; {syncs:.0f} host stream "
+            f"synchronisations per call")
         for line in lines:
             say(line)
 

@@ -26,6 +26,8 @@ from evennicer_slam_tpu_torch.models.eventnet import load_eventnet_npz
 from evennicer_slam_tpu_torch.models.grids import init_grids
 from evennicer_slam_tpu_torch.render.renderer import Renderer, RenderSettings
 from evennicer_slam_tpu_torch.slam.camera import Camera
+from evennicer_slam_tpu_torch.slam.keyframes import KeyframeStore
+from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig, map_frame
 from evennicer_slam_tpu_torch.slam.tracker import (
     Tracker,
     TrackerConfig,
@@ -144,6 +146,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax"), (path, mod)
             assert top != "evennicer_slam_tpu", (path, mod)
+            # the machine with the card has no OpenCV
+            assert top != "cv2", (path, mod)
 
 
 def test_every_port_module_imports_here():
@@ -151,7 +155,8 @@ def test_every_port_module_imports_here():
     names = [m.name for m in pkgutil.walk_packages(
         evennicer_slam_tpu_torch.__path__, "evennicer_slam_tpu_torch.")]
     assert "evennicer_slam_tpu_torch.ops.fused_decode" in names
-    for new in ("utils.optim", "data.synthetic", "slam.tracker", "ops.cuda_build"):
+    for new in ("utils.optim", "data.synthetic", "slam.tracker", "ops.cuda_build",
+                "slam.mapper", "slam.keyframes"):
         assert f"evennicer_slam_tpu_torch.{new}" in names
     for name in names:
         __import__(name)
@@ -196,6 +201,16 @@ ENTRY_POINTS = {
                                RenderSettings(), BOUND),
     "adam_state_from_numpy": lambda: convert.adam_state_from_numpy(
         np.zeros(3, np.float32), np.zeros(3, np.float32), np.zeros((), np.int32)),
+    "Mapper": lambda: Mapper(MapperConfig(), Camera(20, 30, 18.0, 18.0, 14.5, 9.5),
+                             RenderSettings(), BOUND),
+    "KeyframeStore": lambda: KeyframeStore(),
+    "keyframe_store_from_numpy": lambda: convert.keyframe_store_from_numpy([]),
+    "map_frame": lambda: map_frame(
+        {}, {}, torch.zeros(1, 7), None, None, torch.eye(4)[None], torch.ones(1),
+        torch.zeros(1, 20, 30, 3), torch.zeros(1, 20, 30), {}, torch.as_tensor(BOUND), {}, {},
+        1.0, None, None, None, {}, 0.0, None, None, None, None, MapperConfig(),
+        Camera(20, 30, 18.0, 18.0, 14.5, 9.5), RenderSettings(), False, False, False, (),
+        False, False),
 }
 
 

@@ -278,3 +278,30 @@ def test_composite_gradient_wrt_raw(rng):
     d, v, c, _ = tc.composite_two_bands_occupancy(r[:, :8], t(za), r[:, 8:], t(zb))
     (d.sum() + 0.5 * c.sum() + 0.1 * v.sum()).backward()
     assert_close(r.grad, g_want, 1e-4)
+
+
+@pytest.mark.parametrize("occupancy", [True, False])
+def test_composite_rays_gradient_wrt_raw(rng, occupancy):
+    """composite_rays (the coarse term's compositor) against the JAX
+    package's gradient, and its transmittance backward against autograd's
+    own backward of ``torch.cumprod``, bit for bit (the port's version
+    skips only autograd's check for zero factors, a read-back to the host)."""
+    raw = rng.normal(size=(10, 12, 4)).astype(np.float32)
+    raw[0, 2, 3] = 50.0  # alpha == 1 in f32: the factor is 1e-10, still nonzero
+    z = np.sort(rng.uniform(0.1, 3.0, (10, 12)).astype(np.float32), axis=-1)
+    d = rng.normal(size=(10, 3)).astype(np.float32)
+    cot = [rng.normal(size=s).astype(np.float32) for s in ((10,), (10,), (10, 3), (10, 12))]
+
+    def jloss(r):
+        outs = jc.composite_rays(r, jnp.asarray(z), jnp.asarray(d), occupancy=occupancy)
+        return sum(jnp.sum(o * c) for o, c in zip(outs, cot))
+
+    r = t(raw).requires_grad_()
+    outs = tc.composite_rays(r, t(z), t(d), occupancy=occupancy)
+    (g,) = torch.autograd.grad(sum((o * t(c)).sum() for o, c in zip(outs, cot)), r)
+    assert_close(g, jax.grad(jloss)(jnp.asarray(raw)), 1e-4)
+    x = (torch.rand(10, 13) + 1e-10).requires_grad_()
+    cot_x = torch.randn(10, 13)
+    want = torch.autograd.grad(torch.cumprod(x, -1), x, cot_x)[0]
+    got = torch.autograd.grad(tc._PositiveCumprod.apply(x, -1), x, cot_x)[0]
+    assert torch.equal(got, want)
