@@ -34,7 +34,17 @@ bound):
   - one steady mapping call (K = 5, BA) through ``Mapper.optimize_map`` on
     the card twice (bitwise equal) and on the CPU from the same state with
     the same draws (within limits), and on the CPU with each of three faults
-    planted (each outside the limits).
+    planted (each outside the limits);
+  - the pipeline from disk: the same furnished room written as a
+    Replica-event scene under ``build/`` (``make_synthetic_replica``; phase
+    10 reads its frames from it) and run through ``EvenNICERSLAM`` with
+    ``bench.py``'s configuration: frames 0-5, ``preload_device`` of 6-31,
+    four timed blocks of five frames each ending with its steady mapping
+    call (frames per second of each block), one more block with the host
+    synchronisations counted, then the sequence's end (the final colour
+    refinement); the ATE, the kernels' launches and a checkpoint restored
+    bit for bit; then ``EvenNICERSLAM.run`` over frames 0-25 with RGB-D +
+    event on every frame, its ATE held below a camera held at frame 0.
 
 Scene grids and decoders start random, from a seed; only the mapping phase
 fits them. Every phase that fails ends the run with a non-zero exit code. Without a CUDA
@@ -82,7 +92,11 @@ from evennicer_slam_tpu_torch.core.rays import (  # noqa: E402
     get_rays_rescale,
     sample_pixels,
 )
-from evennicer_slam_tpu_torch.data.synthetic import synthetic_frames  # noqa: E402
+from evennicer_slam_tpu_torch.data.datasets import get_dataset  # noqa: E402
+from evennicer_slam_tpu_torch.data.synthetic import (  # noqa: E402
+    make_synthetic_replica,
+    synthetic_frames,
+)
 from evennicer_slam_tpu_torch.models.decoders import (  # noqa: E402
     init_nice_decoders,
     pack_grids_for_tracking,
@@ -100,6 +114,7 @@ from evennicer_slam_tpu_torch.render.renderer import (  # noqa: E402
 from evennicer_slam_tpu_torch.slam.camera import Camera  # noqa: E402
 from evennicer_slam_tpu_torch.slam import mapper as mapper_module  # noqa: E402
 from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig  # noqa: E402
+from evennicer_slam_tpu_torch.slam.pipeline import EvenNICERSLAM  # noqa: E402
 from evennicer_slam_tpu_torch.slam.tracker import (  # noqa: E402
     Tracker,
     TrackerConfig,
@@ -107,6 +122,7 @@ from evennicer_slam_tpu_torch.slam.tracker import (  # noqa: E402
     track_frame,
     tracking_loss,
 )
+from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger  # noqa: E402
 from evennicer_slam_tpu_torch.utils.optim import tree_map  # noqa: E402
 from evennicer_slam_tpu_torch.utils.runtime import setup_torch  # noqa: E402
 
@@ -738,31 +754,33 @@ def mapping_config(cfg):
     return MapperConfig.from_cfg(c)
 
 
-def make_map(cfg, dev, seed=SEED):
+def make_map(cfg, dev, seed=SEED, bound=BOUND):
     """The full-width map of the shipped configuration, coarse level
     included, random from a seed."""
     gen = torch.Generator().manual_seed(seed + 5)
-    grids = init_grids(gen, BOUND, cfg["grid_len"], cfg["model"]["c_dim"], coarse=True,
+    grids = init_grids(gen, bound, cfg["grid_len"], cfg["model"]["c_dim"], coarse=True,
                        coarse_bound_enlarge=cfg["model"]["coarse_bound_enlarge"], device=dev)
     decoders = init_nice_decoders(gen, c_dim=cfg["model"]["c_dim"], coarse=True, device=dev)
     return grids, decoders
 
 
-def room_frames(cam, dev, n):
-    """Frames 0..n-1 of the synthetic scene, the room furnished (its relief
-    constrains translation where a bare wall would not) and 2 cm inside
-    the map's bound, on the host (numpy, as a reader yields them) and on the
-    device."""
+def room_frames(frag, dev, n):
+    """Frames 0..n-1 of the furnished room 2 cm inside the map's bound (its
+    relief constrains translation where a bare wall would not), read from
+    the scene on disk through the port's reader — equal, bit for bit, to
+    ``data/synthetic.py::synthetic_frames`` with the same arguments — on the
+    host (numpy, as the reader yields them) and on the device."""
     t0 = time.perf_counter()
+    reader = get_dataset({"dataset": frag["dataset"], "data": frag["data"], "cam": frag["cam"]})
     out = []
-    for f in synthetic_frames(n, cam.H, cam.W, fx=cam.fx, fy=cam.fy, bound=ROOM,
-                              traj_step=0.01, furnished=True):
+    for i in range(n):
+        f = reader[i]
         out.append(SimpleNamespace(
             index=f.index, np=f, c2w=torch.from_numpy(f.c2w).to(dev),
             color=torch.from_numpy(f.color).to(dev), depth=torch.from_numpy(f.depth).to(dev),
             event=torch.from_numpy(f.event).to(dev)))
     torch.cuda.synchronize()
-    say(f"mapping scene: {n} frames {cam.H}x{cam.W} made on the host and uploaded in "
+    say(f"mapping scene: {n} frames {reader.H}x{reader.W} read from disk and uploaded in "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
     return out
 
@@ -800,7 +818,7 @@ def count_syncs(out):
             torch.cuda.set_sync_debug_mode("default")
 
 
-def map_and_track(cfg, mp, dev, frames, tcfg, label, ate_bar, seed=SEED):
+def map_and_track(cfg, mp, dev, frames, tcfg, label, ate_bar, seed=SEED, bound=BOUND):
     """Frame 0 mapped from its true pose (the first call), frames 1..n-1
     tracked through ``Tracker.track`` on the fitted map with ``tcfg``, a
     steady mapping call every fifth frame from the tracker's device pose,
@@ -810,16 +828,17 @@ def map_and_track(cfg, mp, dev, frames, tcfg, label, ate_bar, seed=SEED):
     the depth of the first call's map, the window, the losses, the launches
     and the host synchronisations inside steady calls, and that the ATE lies
     below ``ate_bar(held)``, ``held`` the RMSE of a camera held at frame 0
-    (both in metres). Returns the failures with the results."""
+    (both in metres). ``bound`` is the map's bound. Returns the failures
+    with the results."""
     cam = mp.cam
     n_frames = len(frames)
     mcfg = mapping_config(cfg)
     map_settings = RenderSettings.from_cfg(cfg)
-    grids, decoders = make_map(cfg, dev, seed)
-    mapper = Mapper(mcfg, cam, map_settings, BOUND, seed=seed, device=dev)
+    grids, decoders = make_map(cfg, dev, seed, bound)
+    mapper = Mapper(mcfg, cam, map_settings, bound, seed=seed, device=dev)
     mapper.fuse_coarse = True
-    tracker = Tracker(tcfg, cam, mp.settings, BOUND, mp.eventnet, device=dev)
-    renderer = Renderer(cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, BOUND, map_settings,
+    tracker = Tracker(tcfg, cam, mp.settings, bound, mp.eventnet, device=dev)
+    renderer = Renderer(cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy, bound, map_settings,
                         device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1097,6 +1116,217 @@ def mapping_card_vs_cpu(mapper, grids, decoders, f, pose, dev):
     return res
 
 
+# ---- the pipeline from disk ------------------------------------------------------
+
+# The furnished room of phase 10 written to disk in the Replica-event layout and
+# read back through the port's reader (data/datasets.py, data/png.py): the same
+# frames, bit for bit. Past the four timed blocks (frames 6-25) one more block,
+# untimed, in which the host synchronisations are counted (PyTorch's sync debug
+# mode slows the host), then two frames more, as bench.py writes two past its
+# window (bench.py:39): the final colour refinement comes last (frame 32).
+SCENE_DIR = os.path.join(cuda_build.BUILD_DIR, "room_scene")
+PIPE_WARM = 6    # frames 0-5: the first mapping call, the first steady call
+PIPE_BLOCK = 5   # then blocks of five frames, each ending with its mapping call
+SCENE_FRAMES = MAP_FRAMES + PIPE_BLOCK + 2
+EVENTNET_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "pretrained",
+                            "eventnet_mapdomain.npz")
+
+
+def write_room_scene(cam):
+    """Write (or keep, when current) the furnished room at the camera's width."""
+    t0 = time.perf_counter()
+    frag = make_synthetic_replica(SCENE_DIR, n_frames=SCENE_FRAMES, H=cam.H, W=cam.W,
+                                  fx=cam.fx, fy=cam.fy, bound=ROOM, traj_step=0.01,
+                                  furnished=True, reuse_if_current=True)
+    say(f"scene: {SCENE_FRAMES} frames {cam.H}x{cam.W} of the furnished room written to "
+        f"{SCENE_DIR} in {time.perf_counter() - t0:.1f} s (set-up)")
+    return frag
+
+
+def pipeline_config(frag):
+    """configs/nice_slam.yaml with bench.py's overrides (bench.py:53-84), but
+    keyframe_every 5 as phase 10 has it: K reaches 5 and BA turns on."""
+    cfg = load_config(default_config_path(nice=True))
+    update_recursive(cfg, frag)
+    update_recursive(cfg, {
+        "verbose": False, "enable_vis": False, "metrics_flush_batch": 10**9,
+        "event": {"pretrained_path": EVENTNET_NPZ, "rgbd_every_frame": 5,
+                  "activate_events": True, "balancer": 0.025, "scale_factor": 0.15,
+                  "blur": True, "kernel_sizes": [9], "unblurred_weight": 0,
+                  "kernel_weights": [1]},
+        "tracking": {"ignore_edge_W": 100, "ignore_edge_H": 100},
+        "mapping": {"mesh_freq": 10**9, "ckpt_freq": 10**9, "iters_first": MAP_ITERS_FIRST,
+                    "keyframe_every": MAP_KEYFRAME_EVERY},
+        "data": {"output": os.path.join(SCENE_DIR, "output")},
+    })
+    return cfg
+
+
+def pipeline_from_disk(frag, dev, ate_in_memory):
+    """``EvenNICERSLAM`` over the scene on disk: ``step`` 0-5,
+    ``preload_device`` 6-31, ``step`` in four timed blocks of five frames,
+    each ending with its mapping call and a synchronise, one more block with
+    the host synchronisations counted, then the sequence's last two frames
+    (the final colour refinement). Checks the ATE of frames 0-25 against
+    ATE_BENCH_BAR, that every steady call took the device pose, that the
+    tracked frames went through both kernels, that no steady block
+    synchronised with the host, and that a checkpoint of the last frame
+    restores into a fresh pipeline bit for bit. ``ate_in_memory`` is phase
+    10's reading on frames 0-25, printed beside. Returns (failures, results,
+    launches)."""
+    cfg = pipeline_config(frag)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    slam = EvenNICERSLAM(cfg, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    for idx in range(PIPE_WARM):
+        slam.step(idx)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    end = PIPE_WARM + 4 * PIPE_BLOCK
+    t0 = time.perf_counter()
+    slam.frame_reader.preload_device(range(PIPE_WARM, end + PIPE_BLOCK + 1))
+    slam._flush_metrics(force=True)
+    torch.cuda.synchronize()
+    preload_s = time.perf_counter() - t0
+    blocks, syncs = [], []
+    for b in range(4):
+        t0 = time.perf_counter()
+        for idx in range(PIPE_WARM + b * PIPE_BLOCK, PIPE_WARM + (b + 1) * PIPE_BLOCK):
+            slam.step(idx)
+        torch.cuda.synchronize()
+        blocks.append(PIPE_BLOCK / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    window, ba = slam.mapper.last_window_size, slam.mapper.BA_active
+    # before any pose is read back: a pose read to the host goes up again
+    # from pageable memory when the next frame is tracked from it
+    with count_syncs(syncs):
+        for idx in range(end, end + PIPE_BLOCK):
+            slam.step(idx)
+    torch.cuda.synchronize()
+    slam._flush_metrics(force=True)
+    est = slam.estimate_c2w_list[:end].astype(np.float64)
+    gt = slam.gt_c2w_list[:end].astype(np.float64)
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    steady_calls = (end + PIPE_BLOCK - 1) // slam.m_cfg.every_frame
+
+    # the sequence's end: the last frame, whose pose is staged into pinned
+    # memory as it is tracked and read by the final colour refinement (five
+    # calls, the window doubled)
+    n_img = len(slam.frame_reader)
+    t0 = time.perf_counter()
+    for idx in range(end + PIPE_BLOCK, n_img):
+        slam.step(idx)
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t0
+    n_fwd, n_bwd = launches()
+    tcfg = slam.t_cfg
+    want_launches = sum(tcfg.iters * (2 if i % tcfg.rgbd_every_frame == 0 else 1)
+                        for i in range(1, n_img))
+
+    # a checkpoint of the last frame restored into a fresh pipeline
+    slam._flush_metrics(force=True)
+    slam.mapper.keyframes.sync_host_poses()
+    t0 = time.perf_counter()
+    path = slam.logger.log(slam, n_img - 1)
+    fresh = EvenNICERSLAM(cfg, device=dev)
+    start = CheckpointLogger.restore(fresh, path)
+    ckpt_s = time.perf_counter() - t0
+    same = (all(torch.equal(a, b) for (_, a), (_, b) in
+                zip(_leaves((slam.grids, slam.decoders)), _leaves((fresh.grids, fresh.decoders))))
+            and np.array_equal(fresh.estimate_c2w_list, slam.estimate_c2w_list)
+            and fresh.mapper.keyframes.indices == slam.mapper.keyframes.indices
+            and start == n_img)
+    res = {"frames": end, "scene_frames": len(slam.frame_reader),
+           "fps_blocks": blocks, "fps_median": float(np.median(blocks)),
+           "warm_s": warm_s, "preload_s": preload_s, "pipeline_build_s": build_s,
+           "ate_rmse_m": ate, "ate_bar_m": ATE_BENCH_BAR,
+           "ate_in_memory_phase10_m": ate_in_memory,
+           "err_mm_per_frame": [round(1e3 * e, 2) for e in err],
+           "n_fast_maps": slam.n_fast_maps, "steady_calls": steady_calls,
+           "keyframes": slam.mapper.keyframes.indices,
+           "window_frame_25": window, "BA_frame_25": ba, "end_of_sequence_s": tail_s,
+           "mapping_calls": slam.mapping_cnt,
+           "fwd_launches": n_fwd, "bwd_launches": n_bwd, "expected_launches": want_launches,
+           "syncs_in_steady_block": len(syncs), "sync_sites": sorted(set(syncs))[:6],
+           "peak_memory_gib": peak, "checkpoint_bitwise": same, "checkpoint_s": ckpt_s,
+           "host_dispatch": slam.timers.summary()}
+    say("pipeline from disk: " + json.dumps(res))
+    failed = []
+    if not ate <= ATE_BENCH_BAR:
+        failed.append(f"ATE {ate:.4f} m above {ATE_BENCH_BAR} m")
+    if slam.n_fast_maps != steady_calls:
+        failed.append(f"{slam.n_fast_maps} of {steady_calls} steady mapping calls took the "
+                      "device pose")
+    if not (n_fwd > 0 and n_bwd > 0 and n_fwd == n_bwd == want_launches):
+        failed.append(f"the pipeline launched the decode kernels {n_fwd} / {n_bwd} times, "
+                      f"expected {want_launches} each")
+    if not (window == 5 and ba):
+        failed.append("the mapping call of frame 25 did not run at K = 5 with BA")
+    if syncs:
+        failed.append(f"a steady block synchronised with the host {len(syncs)} times, at "
+                      f"{sorted(set(syncs))[:6]}")
+    if slam.mapping_cnt != steady_calls + 2 or slam.n_fast_maps != steady_calls:
+        failed.append(f"the sequence's end did not refine the colour at frame {n_img - 1} "
+                      "from the pose read back")
+    if not same:
+        failed.append("the checkpoint did not restore bit for bit")
+    return [f"pipeline from disk: {f}" for f in failed], res, (n_fwd, n_bwd)
+
+
+def run_pipeline(frag, dev, rgbd_every_frame, seed=None, plant=None, label="every"):
+    """``EvenNICERSLAM.run`` over frames 0-25 of the scene on disk (no
+    checkpoint, no final colour refinement: the scene runs on) with RGB-D
+    on every ``rgbd_every_frame``-th frame; ``seed`` replaces the
+    configuration's, ``plant(slam)`` plants a fault before the first frame.
+    Returns (ATE, RMSE of a camera held at frame 0, per-frame error in mm,
+    the pipeline), lengths in metres."""
+    cfg = pipeline_config(frag)
+    cfg["event"]["rgbd_every_frame"] = rgbd_every_frame
+    cfg["data"]["output"] = os.path.join(SCENE_DIR, f"output_{label}")
+    if seed is not None:
+        cfg["seed"] = seed
+    slam = EvenNICERSLAM(cfg, device=dev)
+    if plant is not None:
+        plant(slam)
+    est = slam.run(end_frame=MAP_FRAMES, mesh=False, checkpoint=False)[:MAP_FRAMES]
+    gt = slam.gt_c2w_list[:MAP_FRAMES].astype(np.float64)
+    err = np.linalg.norm(est[:, :3, 3].astype(np.float64) - gt[:, :3, 3], axis=1)
+    held = float(np.sqrt(np.mean(np.sum((gt[:, :3, 3] - gt[0, :3, 3]) ** 2, axis=1))))
+    return float(np.sqrt(np.mean(err ** 2))), held, [round(1e3 * e, 2) for e in err], slam
+
+
+def pipeline_every_frame(frag, dev):
+    """The pipeline from disk with RGB-D + event on every frame, through
+    ``EvenNICERSLAM.run``: its ATE of frames 0-25 must lie below the RMSE of
+    a camera held at frame 0, as phase 10's does on the same schedule (the
+    bench schedule's bar does not tell a tracker from a held camera).
+    Returns (failures, results, launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    ate, held, err, slam = run_pipeline(frag, dev, 1)
+    torch.cuda.synchronize()
+    n_fwd, n_bwd = launches()
+    want = 2 * slam.t_cfg.iters * (MAP_FRAMES - 1)
+    res = {"frames": MAP_FRAMES, "ate_rmse_m": ate, "held_camera_rmse_m": held,
+           "err_mm_per_frame": err, "keyframes": slam.mapper.keyframes.indices,
+           "n_fast_maps": slam.n_fast_maps, "fwd_launches": n_fwd, "bwd_launches": n_bwd,
+           "run_s": time.perf_counter() - t0}
+    say("pipeline from disk, RGB-D + event on every frame (EvenNICERSLAM.run): "
+        + json.dumps(res))
+    failed = []
+    if not ate < held:
+        failed.append(f"ATE {ate:.4f} m is not below the held camera's {held:.4f} m")
+    if (n_fwd, n_bwd) != (want, want):
+        failed.append(f"the decode kernels launched {n_fwd} / {n_bwd} times, expected {want}")
+    return [f"pipeline from disk, RGB-D every frame: {f}" for f in failed], res, (n_fwd, n_bwd)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1295,7 +1525,8 @@ def main():
     # The bench schedule (event only, RGB-D every fifth frame) held to the JAX
     # package's trajectory error on the same frames; RGB-D + event on every
     # frame held below the error of a camera held at frame 0.
-    m_frames = room_frames(cam, dev, MAP_FRAMES)
+    frag = write_room_scene(cam)
+    m_frames = room_frames(frag, dev, MAP_FRAMES)
     reset_launches()
     failed, map_res = map_and_track(
         cfg, mp, dev, m_frames, tcfg._replace(rgbd_every_frame=1), "RGB-D + event every frame",
@@ -1310,6 +1541,16 @@ def main():
 
     # ---- 11. one steady mapping call on the card and on the CPU -------------------
     cpu_res = mapping_card_vs_cpu(*steady_mapping_state(cfg, cam, dev, m_frames), dev)
+
+    # ---- 12. the pipeline from disk -----------------------------------------------
+    failed_pipe, pipe_res, (launches_pipe_fwd, launches_pipe_bwd) = pipeline_from_disk(
+        frag, dev, bench_res["ate_rmse_m"])
+    failed += failed_pipe
+    failed_every, every_res, (launches_every_fwd, launches_every_bwd) = pipeline_every_frame(
+        frag, dev)
+    failed += failed_every
+    launches_pipe_fwd += launches_every_fwd
+    launches_pipe_bwd += launches_every_bwd
     if failed:
         raise RuntimeError("; ".join(failed))
 
@@ -1324,10 +1565,11 @@ def main():
         "route": "cuda",
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:177",
-        "launches": launches_main + launches_track_fwd + launches_map_fwd,
+        "launches": launches_main + launches_track_fwd + launches_map_fwd + launches_pipe_fwd,
         "launches_scores": launches_main,
         "launches_tracking": launches_track_fwd,
         "launches_map_and_track": launches_map_fwd,
+        "launches_pipeline": launches_pipe_fwd,
         "max_abs_err": max(main_res["max_abs_err"], small["max_abs_err"]),
         "ms": main_res["ms"],
         "plain_ms": main_res["plain_ms"],
@@ -1346,9 +1588,10 @@ def main():
         "route": "cuda",
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode_bwd.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:188",
-        "launches": launches_track_bwd + launches_map_bwd,
+        "launches": launches_track_bwd + launches_map_bwd + launches_pipe_bwd,
         "launches_tracking": launches_track_bwd,
         "launches_map_and_track": launches_map_bwd,
+        "launches_pipeline": launches_pipe_bwd,
         "max_abs_err": max(bwd_main["max_abs_err"], bwd_small["max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
@@ -1373,6 +1616,10 @@ def main():
             "ate_rmse_m", "ate_bar_m", "held_camera_rmse_m", "event_corr_mean",
             "steady_call_ms")},
         "card_vs_cpu": cpu_res}))
+    say("pipeline: " + json.dumps({k: pipe_res[k] for k in (
+        "fps_blocks", "fps_median", "ate_rmse_m", "ate_in_memory_phase10_m", "n_fast_maps",
+        "syncs_in_steady_block", "peak_memory_gib", "checkpoint_bitwise")}
+        | {"every_frame": {k: every_res[k] for k in ("ate_rmse_m", "held_camera_rmse_m")}}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ it against.
 Ported so far: tracking (render through the packed NICE decode, forward and
 backward as hand-written CUDA kernels on the card, the EventNet prediction,
 the RGB-D and event losses, the pose optimisation), mapping with its
-keyframe registry, and whole-image rendering.
+keyframe registry, whole-image rendering, and the pipeline from a scene on
+disk (``slam/pipeline.py``: the dataset reader with its own PNG codec, the
+prefetching upload, metrics and checkpoints).
 """
 
 __version__ = "0.1.0"

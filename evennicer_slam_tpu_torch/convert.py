@@ -118,3 +118,19 @@ def keyframe_store_from_numpy(frames, poses=None, device=None):
     if poses is not None:
         store.set_poses_device(tensor_from_numpy(np.asarray(poses, np.float32), store.device))
     return store
+
+
+def pipeline_state_from_numpy(slam, grids, decoders, eventnet=None):
+    """Put the JAX pipeline's initial scene state (grids, decoders and, when
+    given, EventNet weights, as numpy trees) into a port ``EvenNICERSLAM``,
+    on its device, so that both pipelines start from the same map and nets.
+    The tracker and the mapper share the pipeline's EventNet tree, so they
+    are handed the new one too. Checkpoints (``utils/logger.py``) carry the
+    rest of the state across."""
+    slam.grids = grids_from_numpy(grids, slam.device)
+    slam.decoders = decoders_from_numpy(decoders, slam.device)
+    if eventnet:
+        slam.eventnet = eventnet_from_numpy(eventnet, slam.device)
+        slam.tracker.eventnet = slam.eventnet
+        slam.mapper.eventnet = slam.eventnet
+    return slam

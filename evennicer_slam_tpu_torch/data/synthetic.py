@@ -1,4 +1,4 @@
-"""Procedural synthetic RGB-D + event sequences, in memory (counterpart of
+"""Procedural synthetic RGB-D + event sequences (counterpart of
 ``evennicer_slam_tpu/data/synthetic.py``; numpy only).
 
 A textured axis-aligned room, optionally furnished, rendered analytically by
@@ -7,15 +7,20 @@ ESIM-style ground-truth event frames. :func:`synthetic_frames` yields, frame
 by frame, what the Replica-event dataset reader hands the pipeline after the
 scene has made the round trip through its PNG files: colour quantised to 8
 bits, depth to 16 bits at ``PNG_DEPTH_SCALE``, the event image as 8-bit
-counts with polarity order [-, +], and the pose. Writing the dataset to disk
-and the ground-truth mesh come with the dataset-reader slice.
+counts with polarity order [-, +], and the pose. :func:`make_synthetic_replica`
+writes the same scene to disk in the Replica-event layout (PNG through
+``data/png.py``). The ground-truth mesh comes with the mesher.
 """
 
 from __future__ import annotations
 
+import glob
+import os
 from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
+
+from evennicer_slam_tpu_torch.data.png import read_png, write_png
 
 PNG_DEPTH_SCALE = 6553.5
 
@@ -307,6 +312,41 @@ class Frame(NamedTuple):
     c2w: np.ndarray     # [4, 4] float32
 
 
+def _scene_images(n_frames, H, W, fx, fy, bound, event_gain, traj_step, traj_jitter,
+                  traj_seed, furnished, traj_kwargs):
+    """(pose, colour [H, W, 3] uint8, depth [H, W] uint16 at
+    ``PNG_DEPTH_SCALE``, events [H, W, 2] uint8 with polarity [-, +]) of
+    each frame: what the scene's PNG files hold. Frame ``k``'s events are the
+    brightness change from frame ``k - 1`` to ``k`` of the unquantised
+    render, times ``event_gain``, clipped to [0, 255] and truncated to whole
+    counts; frame 0 has none."""
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    poses = circular_trajectory(n_frames, bound.mean(axis=1), step=traj_step,
+                                jitter=traj_jitter, jitter_seed=traj_seed,
+                                **(traj_kwargs or {}))
+    prims = scene_primitives(bound) if furnished else None
+    prev_intensity = None
+    for k in range(n_frames):
+        color, depth = render_box_views(poses[k], H, W, fx, fy, cx, cy, bound,
+                                        prims=prims)
+        intensity = color.mean(axis=-1)
+        if k > 0:
+            diff = (intensity - prev_intensity) * event_gain
+            event = np.stack([np.clip(-diff, 0, 255), np.clip(diff, 0, 255)],
+                             axis=-1).astype(np.uint8)
+        else:
+            event = np.zeros((H, W, 2), np.uint8)
+        prev_intensity = intensity
+        yield (poses[k], (color * 255).astype(np.uint8),
+               np.clip(depth * PNG_DEPTH_SCALE, 0, 65535).astype(np.uint16), event)
+
+
+def _default_bound(bound):
+    if bound is None:
+        return np.array([[-1.2, 1.2], [-1.0, 1.0], [-0.8, 0.8]], np.float32)
+    return bound
+
+
 def synthetic_frames(
     n_frames: int = 8,
     H: int = 120,
@@ -322,36 +362,14 @@ def synthetic_frames(
     traj_kwargs: Optional[Dict] = None,
 ) -> Iterator[Frame]:
     """The frames of the synthetic Replica-event scene, one at a time, equal
-    to what the reader returns for the dataset the JAX package's
-    ``make_synthetic_replica`` writes with the same arguments (principal
-    point at the image centre). Frame ``k``'s events are the brightness
-    change from frame ``k - 1`` to ``k`` of the unquantised render, times
-    ``event_gain``, clipped to [0, 255] and truncated to whole counts; frame
-    0 has none."""
-    if bound is None:
-        bound = np.array([[-1.2, 1.2], [-1.0, 1.0], [-0.8, 0.8]], np.float32)
-    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
-    center = bound.mean(axis=1)
-    poses = circular_trajectory(n_frames, center, step=traj_step,
-                                jitter=traj_jitter, jitter_seed=traj_seed,
-                                **(traj_kwargs or {}))
-    prims = scene_primitives(bound) if furnished else None
-
-    prev_intensity = None
-    for k in range(n_frames):
-        color, depth = render_box_views(poses[k], H, W, fx, fy, cx, cy, bound,
-                                        prims=prims)
-        intensity = color.mean(axis=-1)
-        if k > 0:
-            diff = (intensity - prev_intensity) * event_gain
-            neg = np.clip(-diff, 0, 255).astype(np.uint8)
-            pos = np.clip(diff, 0, 255).astype(np.uint8)
-            event = np.stack([neg, pos], axis=-1).astype(np.float32)
-        else:
-            event = np.zeros((H, W, 2), np.float32)
-        prev_intensity = intensity
-        color8 = (color * 255).astype(np.uint8)
-        depth16 = np.clip(depth * PNG_DEPTH_SCALE, 0, 65535).astype(np.uint16)
+    to what the reader (``data/datasets.py``) returns for the dataset
+    :func:`make_synthetic_replica` writes with the same arguments (principal
+    point at the image centre)."""
+    bound = _default_bound(bound)
+    images = _scene_images(n_frames, H, W, fx, fy, bound, event_gain, traj_step,
+                           traj_jitter, traj_seed, furnished, traj_kwargs)
+    for k, (pose, color8, depth16, event8) in enumerate(images):
+        event = event8.astype(np.float32)
         yield Frame(
             index=k,
             color=(color8.astype(np.float64) / 255.0).astype(np.float32),
@@ -359,5 +377,131 @@ def synthetic_frames(
             event=event,
             event_mask=np.any(event != 0, axis=-1).astype(np.int32),
             # the reader parses the pose from nine decimals of text
-            c2w=np.round(poses[k].astype(np.float64), 9).astype(np.float32),
+            c2w=np.round(pose.astype(np.float64), 9).astype(np.float32),
         )
+
+
+# ---- the scene on disk -----------------------------------------------------------
+
+def _event_file(event8: np.ndarray) -> np.ndarray:
+    """Events [-, +] -> the event PNG's pixels, RGB order [0, -, +] (the
+    JAX package writes BGR [+, -, 0] through cv2, the same file)."""
+    return np.concatenate([np.zeros_like(event8[..., :1]), event8], axis=-1)
+
+
+def _raw_traj(pose: np.ndarray) -> np.ndarray:
+    """traj.txt stores the pose before the reader's y/z flip."""
+    raw = pose.copy()
+    raw[..., :3, 1] *= -1
+    raw[..., :3, 2] *= -1
+    return raw
+
+
+def make_synthetic_replica(
+    out_dir: str,
+    n_frames: int = 8,
+    H: int = 120,
+    W: int = 200,
+    fx: float = 100.0,
+    fy: float = 100.0,
+    bound: Optional[np.ndarray] = None,
+    event_gain: float = 20.0,
+    traj_step: float = None,
+    traj_jitter: float = 0.0,
+    traj_seed: int = 7,
+    furnished: bool = False,
+    traj_kwargs: Optional[Dict] = None,
+    reuse_if_current: bool = False,
+) -> Dict:
+    """Write a Replica-format dataset (+ event folder) and return a config
+    fragment describing it: ``results/frame*.png`` (RGB),
+    ``results/depth*.png`` (16-bit, x6553.5), ``traj.txt`` (poses before
+    the reader's y/z flip), ``events/frame*.png`` (RGB [0, -, +]). The
+    files hold the same pixels as the JAX package's writer's.
+
+    With ``reuse_if_current`` an existing directory is kept when it matches
+    the requested parameters (frame count, trajectory, and re-renders of
+    frames 0 and 1 against the files, which catches a change of the scene
+    code or of ``event_gain``): full-resolution generation is minutes of
+    host ray tracing per hundred frames."""
+    bound = _default_bound(bound)
+    args = (n_frames, H, W, fx, fy, bound, event_gain, traj_step, traj_jitter, traj_seed,
+            furnished, traj_kwargs)
+    res = os.path.join(out_dir, "results")
+    ev_dir = os.path.join(out_dir, "events")
+    os.makedirs(res, exist_ok=True)
+    os.makedirs(ev_dir, exist_ok=True)
+    if reuse_if_current and _scene_is_current(out_dir, res, ev_dir, args):
+        return _scene_frag(out_dir, ev_dir, H, W, fx, fy, bound)
+    # remove stale frames of an earlier scene of another length
+    for stale in glob.glob(os.path.join(res, "*.png")) + glob.glob(os.path.join(ev_dir, "*.png")):
+        os.remove(stale)
+
+    traj_lines = []
+    for k, (pose, color8, depth16, event8) in enumerate(_scene_images(*args)):
+        write_png(os.path.join(res, f"frame{k:06d}.png"), color8)
+        write_png(os.path.join(res, f"depth{k:06d}.png"), depth16)
+        if k > 0:
+            write_png(os.path.join(ev_dir, f"frame{k - 1:06d}.png"), _event_file(event8))
+        traj_lines.append(" ".join(f"{v:.9f}" for v in _raw_traj(pose).reshape(-1)))
+    with open(os.path.join(out_dir, "traj.txt"), "w") as f:
+        f.write("\n".join(traj_lines) + "\n")
+    return _scene_frag(out_dir, ev_dir, H, W, fx, fy, bound)
+
+
+def _scene_is_current(out_dir, res, ev_dir, args) -> bool:
+    """Whether the scene on disk is the one ``args`` describe: the frame,
+    depth and event counts, the stored trajectory against a fresh one, and
+    re-renders of frames 0 and 1 compared pixel for pixel with the stored
+    colour, depth and event images."""
+    n_frames, H, W, _, _, bound, _, traj_step, traj_jitter, traj_seed, _, traj_kwargs = args
+    traj_path = os.path.join(out_dir, "traj.txt")
+    if not os.path.exists(traj_path):
+        return False
+    n_have = len([f for f in os.listdir(res) if f.startswith("frame")])
+    if n_have != n_frames or len(os.listdir(ev_dir)) != n_frames - 1:
+        return False
+    try:
+        traj = np.loadtxt(traj_path).reshape(-1, 4, 4)
+    except ValueError:
+        return False
+    poses = circular_trajectory(n_frames, bound.mean(axis=1), step=traj_step,
+                                jitter=traj_jitter, jitter_seed=traj_seed,
+                                **(traj_kwargs or {}))
+    # traj.txt rounds to 9 decimals
+    if len(traj) != n_frames or not np.allclose(traj, _raw_traj(poses), atol=2e-9):
+        return False
+    images = _scene_images(*args)  # lazy: renders the frames it is asked for
+    _, color8, depth16, _ = next(images)
+    try:
+        disk_c = read_png(os.path.join(res, "frame000000.png"))
+        disk_d = read_png(os.path.join(res, "depth000000.png"))
+        if not (np.array_equal(disk_c, color8) and np.array_equal(disk_d, depth16)):
+            return False
+        if n_frames > 1:
+            # one more render pins the event encoding, event_gain included
+            _, _, _, event8 = next(images)
+            disk_ev = read_png(os.path.join(ev_dir, "frame000000.png"))
+            if not np.array_equal(disk_ev, _event_file(event8)):
+                return False
+    except (OSError, ValueError):
+        return False
+    return True
+
+
+def _scene_frag(out_dir, ev_dir, H, W, fx, fy, bound) -> Dict:
+    margin = 0.02
+    cfg_bound = (bound + np.array([-margin, margin])).tolist()
+    return {
+        "dataset": "replica_event",
+        "data": {
+            "input_folder": out_dir,
+            "event_folder": ev_dir,
+            "output": os.path.join(out_dir, "output"),
+        },
+        "cam": {
+            "H": H, "W": W, "fx": fx, "fy": fy, "cx": (W - 1) / 2.0, "cy": (H - 1) / 2.0,
+            "png_depth_scale": PNG_DEPTH_SCALE, "crop_edge": 0,
+        },
+        "mapping": {"bound": cfg_bound, "marching_cubes_bound": cfg_bound},
+    }

@@ -139,3 +139,68 @@ def load_eventnet_npz(path: str, device=None) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[name[-1]] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
     return params
+
+
+def _he(generator: torch.Generator, shape) -> torch.Tensor:
+    """He-normal HWIO weight: N(0, 2 / fan_in), fan_in = kh * kw * in."""
+    fan_in = shape[0] * shape[1] * shape[2]
+    return torch.randn(shape, generator=generator, device=generator.device) * np.sqrt(2.0 / fan_in)
+
+
+def _bn_identity(c: int, device) -> Dict[str, torch.Tensor]:
+    return {"g": torch.ones(c, device=device), "b": torch.zeros(c, device=device),
+            "m": torch.zeros(c, device=device), "v": torch.ones(c, device=device)}
+
+
+def init_eventnet(generator: torch.Generator, device=None) -> Dict[str, Any]:
+    """Random EventNet parameters (He-normal convolutions, identity
+    BatchNorm statistics), drawn from ``generator`` in the order of the
+    parameter tree and placed on ``device``."""
+    device = resolve_device(device)
+    params: Dict[str, Any] = {}
+
+    def double_conv(cin, mid, cout):
+        return {"w1": _he(generator, (3, 3, cin, mid)).to(device), "bn1": _bn_identity(mid, device),
+                "w2": _he(generator, (3, 3, mid, cout)).to(device), "bn2": _bn_identity(cout, device)}
+
+    for name, cin, mid, cout in _ENCODER:
+        params[name] = double_conv(cin, mid, cout)
+    for head in ("1", "2"):
+        for name, cin, mid, cout in _DECODER:
+            params[f"{name}_{head}"] = double_conv(cin, mid, cout)
+        params[f"outc_{head}"] = {"w": _he(generator, (1, 1, 64, 2)).to(device),
+                                  "b": torch.zeros(2, device=device)}
+    return params
+
+
+def load_eventnet_torch(path: str, device=None) -> Dict[str, Any]:
+    """The reference ``UNet_2heads`` state dict (``.pth``) -> the parameter
+    tree on ``device``: conv weights [out, in, kh, kw] -> HWIO, BatchNorm
+    running statistics kept for inference-mode normalisation. Only tensors
+    and plain containers are unpickled."""
+    device = resolve_device(device)
+    s = torch.load(path, map_location="cpu", weights_only=True)
+
+    def t(key, conv=False):
+        v = s[key].detach()
+        v = v.permute(2, 3, 1, 0) if conv else v
+        return v.contiguous().to(device, torch.float32)
+
+    def dconv(prefix):
+        # torch Sequential indices: 0 conv, 1 bn, 3 conv, 4 bn
+        def bn(i):
+            p = f"{prefix}.double_conv.{i}"
+            return {"g": t(f"{p}.weight"), "b": t(f"{p}.bias"),
+                    "m": t(f"{p}.running_mean"), "v": t(f"{p}.running_var")}
+        return {"w1": t(f"{prefix}.double_conv.0.weight", True), "bn1": bn(1),
+                "w2": t(f"{prefix}.double_conv.3.weight", True), "bn2": bn(4)}
+
+    params: Dict[str, Any] = {"inc": dconv("inc")}
+    for i in range(1, 5):
+        params[f"down{i}"] = dconv(f"down{i}.maxpool_conv.1")
+    for head in ("1", "2"):
+        for i in range(1, 5):
+            params[f"up{i}_{head}"] = dconv(f"up{i}_{head}.conv")
+        params[f"outc_{head}"] = {"w": t(f"outc_{head}.conv.weight", True),
+                                  "b": t(f"outc_{head}.conv.bias")}
+    return params

@@ -2,15 +2,22 @@
 """Where the time goes in the PyTorch port's main path, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_port.py [--out build/profile_torch_port.txt]
+                                          [--traces build/profile_traces]
 
 Builds the same full-width scene and frames as ``chip_smoke.py`` (it imports
 them from there), then for ``tracking_loss`` (event only, and RGB-D + event),
 for one tracked frame (``track_frame``: ten iterations of forward, backward
 and Adam; event only, and RGB-D + event), for one ``render_img`` and for one
 steady mapping call (``Mapper.optimize_map``: 60 iterations, a K = 5 window
-selected on the device, BA, the coarse mapper fused, from a device pose):
+selected on the device, BA, the coarse mapper fused, from a device pose),
+and for blocks of the pipeline from disk (``chip_smoke.py`` phase 12:
+``EvenNICERSLAM.step`` over five preloaded frames, the block ending with its
+steady mapping call; frames 11-15 timed, frames 21-25 traced, after a warm
+block each):
   - times the call on the host clock around ``torch.cuda.synchronize()``,
-  - traces it with ``torch.profiler`` and prints device time by kernel name,
+  - traces it with ``torch.profiler`` (``utils/telemetry.py::torch_trace``,
+    one Chrome trace a call under ``--traces``, ``NN/trace.json`` in the
+    order below) and prints device time by kernel name,
     the sum of device time and its share of the wall time (the rest is the
     device waiting for the host), and the host's stream synchronisations
     (``cudaStreamSynchronize``) inside the call.
@@ -29,7 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as cs  # noqa: E402  (exits without a CUDA device)
 from evennicer_slam_tpu_torch.models.eventnet import inference_event  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from evennicer_slam_tpu_torch.utils.telemetry import torch_trace  # noqa: E402
 
 
 def wall_ms(fn, iters):
@@ -42,10 +49,10 @@ def wall_ms(fn, iters):
     return 1e3 * (time.perf_counter() - t0) / iters
 
 
-def device_table(fn, iters, top):
+def device_table(fn, iters, top, trace_dir):
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_trace(trace_dir) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -72,6 +79,7 @@ def device_table(fn, iters, top):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="build/profile_torch_port.txt")
+    ap.add_argument("--traces", default="build/profile_traces")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top", type=int, default=14)
     ap.add_argument("--cudnn-benchmark", choices=["on", "off"], default=None,
@@ -134,7 +142,7 @@ def main():
 
     # one steady mapping call from the state chip_smoke.py checks card vs CPU:
     # keyframes at frames 0, 5, ..., 20, frame 25 mapped from its device pose
-    mframes = cs.room_frames(cam, dev, cs.MAP_FRAMES)
+    mframes = cs.room_frames(cs.write_room_scene(cam), dev, cs.MAP_FRAMES)
     mapper, m_grids, m_decoders, mf, m_pose = cs.steady_mapping_state(cfg, cam, dev, mframes)
     mcfg = mapper.cfg
 
@@ -144,7 +152,20 @@ def main():
                                    grids=m_grids, decoders=m_decoders,
                                    cur_images_dev=(mf.color, mf.depth))
 
-    for name, fn, iters in (
+    # the pipeline from disk: frames 0-5 warm, 6-26 preloaded, then blocks of
+    # five frames; each call of block() steps the next block
+    slam = cs.EvenNICERSLAM(cs.pipeline_config(cs.write_room_scene(cam)), device=dev)
+    for idx in range(cs.PIPE_WARM):
+        slam.step(idx)
+    slam.frame_reader.preload_device(range(cs.PIPE_WARM, cs.PIPE_WARM + 4 * cs.PIPE_BLOCK + 1))
+    starts = iter(range(cs.PIPE_WARM, cs.PIPE_WARM + 4 * cs.PIPE_BLOCK, cs.PIPE_BLOCK))
+
+    def block():
+        start = next(starts)
+        for idx in range(start, start + cs.PIPE_BLOCK):
+            slam.step(idx)
+
+    for i, (name, fn, iters) in enumerate((
         ("tracking_loss, event only", lambda: score(False), opts.iters),
         ("tracking_loss, RGB-D + event", lambda: score(True), opts.iters),
         (f"track_frame, event only ({mp.tcfg.iters} iterations)", lambda: track(False), 2),
@@ -153,9 +174,12 @@ def main():
         ("render_img 680x1200", render, 2),
         (f"Mapper.optimize_map, steady ({mcfg.iters} iterations, K = {mcfg.window_size}, "
          f"BA, coarse fused, device pose)", map_call, 2),
-    ):
+        ("pipeline block: EvenNICERSLAM.step x 5 ending in a steady mapping call "
+         "(timed: frames 11-15, K = 4; traced: frames 21-25, K = 5 with BA)", block, 1),
+    )):
         ms = wall_ms(fn, iters)
-        total, n_kernels, lines, syncs = device_table(fn, iters, opts.top)
+        total, n_kernels, lines, syncs = device_table(fn, iters, opts.top,
+                                                      os.path.join(opts.traces, f"{i:02d}"))
         say(f"\n== {name}: {ms:.2f} ms wall per call; device busy {total:.2f} ms "
             f"({100 * total / ms:.0f} % of the wall time, idle {100 * (1 - total / ms):.0f} %) "
             f"in {n_kernels:.0f} kernels and copies; {syncs:.0f} host stream "

@@ -156,7 +156,8 @@ def test_every_port_module_imports_here():
         evennicer_slam_tpu_torch.__path__, "evennicer_slam_tpu_torch.")]
     assert "evennicer_slam_tpu_torch.ops.fused_decode" in names
     for new in ("utils.optim", "data.synthetic", "slam.tracker", "ops.cuda_build",
-                "slam.mapper", "slam.keyframes"):
+                "slam.mapper", "slam.keyframes", "data.png", "data.datasets", "data.prefetch",
+                "utils.telemetry", "utils.logger", "models.pretrained", "slam.pipeline"):
         assert f"evennicer_slam_tpu_torch.{new}" in names
     for name in names:
         __import__(name)

@@ -56,7 +56,6 @@ import torch  # noqa: E402
 
 from evennicer_slam_tpu.config import load_config as j_load_config  # noqa: E402
 from evennicer_slam_tpu.config import update_recursive as j_update  # noqa: E402
-from evennicer_slam_tpu.core.rays import sample_pixels as j_sample_pixels  # noqa: E402
 from evennicer_slam_tpu.models import decoders as jd  # noqa: E402
 from evennicer_slam_tpu.models.eventnet_train import (  # noqa: E402
     load_eventnet_npz as j_load_eventnet,
@@ -79,7 +78,11 @@ from evennicer_slam_tpu_torch.slam import mapper as tm  # noqa: E402
 from evennicer_slam_tpu_torch.slam import tracker as tt  # noqa: E402
 from evennicer_slam_tpu_torch.slam.camera import Camera  # noqa: E402
 
-from torch_parity import to_torch  # noqa: E402
+from torch_parity import (  # noqa: E402
+    JaxDrawsMapper,
+    jax_track_draws,
+    to_torch,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NPZ = os.path.join(ROOT, "pretrained", "eventnet_mapdomain.npz")
@@ -107,46 +110,6 @@ def configure(cfg, scale, update):
     cfg["cam"].update(H=H, W=W, fx=c["fx"] * scale, fy=c["fy"] * scale,
                       cx=(W - 1) / 2.0, cy=(H - 1) / 2.0)
     return cfg
-
-
-def jax_map_draws(seed, stage, n, K, pix, hw, coarse):
-    """The JAX mapper's draws of a stage's n iterations, as the port takes
-    them: [n, K, pix] (``map_frame_jit`` folds the stage, the iteration and,
-    for the fused coarse term, 2 into ``PRNGKey(seed)``)."""
-    out = []
-    for it in range(n):
-        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed)),
-                                                    np.int32(tm.STAGE_IDS[stage])), np.int32(it))
-        if coarse:
-            key = jax.random.fold_in(key, 2)
-        out.append(np.asarray(jax.vmap(lambda k: jax.random.randint(k, (pix,), 0, hw))(
-            jax.random.split(key, K))))
-    return torch.from_numpy(np.stack(out).astype(np.int64))
-
-
-class JaxDrawsMapper(tm.Mapper):
-    """The port's mapper with the JAX package's pixel and selection draws."""
-
-    def _draw_pixels(self, seed, stage, term, n, K, pix):
-        return jax_map_draws(seed, stage, n, K, pix, self.cam.H * self.cam.W, bool(term))
-
-    def _selection_draws(self, seed, n_kf):
-        k_pix, k_pri = jax.random.split(jax.random.PRNGKey(np.uint32(seed * 2 + 1)))
-        idx = np.asarray(jax.random.randint(k_pix, (100,), 0, self.cam.H * self.cam.W))
-        pri = np.asarray(jax.random.uniform(k_pri, (n_kf - 1,)))
-        return torch.from_numpy(idx.astype(np.int64)), torch.from_numpy(pri)
-
-
-def jax_track_draws(seed, cfg, cam):
-    """The JAX tracker's pixel draws of a frame: ``fold_in(PRNGKey(seed), it)``."""
-    key = jax.random.PRNGKey(seed)
-    out = []
-    for it in range(cfg.iters):
-        i, j = j_sample_pixels(jax.random.fold_in(key, it), cfg.pixels, cfg.ignore_edge_h,
-                               cam.H - cfg.ignore_edge_h, cfg.ignore_edge_w,
-                               cam.W - cfg.ignore_edge_w)
-        out.append((torch.from_numpy(np.array(i)), torch.from_numpy(np.array(j))))
-    return out
 
 
 def drive(side, frames, rgbd_every, shadows=(), every=EVERY):

@@ -126,11 +126,20 @@ def test_frames_equal_the_dataset_round_trip(js, tmp_path, furnished, jitter):
     assert not np.any((frames[1].event[..., 0] > 0) & (frames[1].event[..., 1] > 0))
 
 
-def test_default_frames_need_no_arguments_and_no_cv2():
+def test_default_frames_need_no_arguments_and_no_cv2(monkeypatch):
+    import ast
     import sys
 
+    # the frames are made in memory: nothing is written (the module's disk
+    # half, make_synthetic_replica, writes through data/png.py)
+    def no_disk(*args, **kwargs):
+        raise AssertionError("synthetic_frames wrote a file")
+
+    monkeypatch.setattr(ts, "write_png", no_disk)
     fr = next(iter(ts.synthetic_frames(n_frames=1, H=12, W=20)))
     assert fr.color.shape == (12, 20, 3) and fr.c2w.shape == (4, 4)
-    src = open(ts.__file__).read()
-    assert "cv2" not in src and "import os" not in src
+    tree = ast.parse(open(ts.__file__).read())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    imported |= {n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)}
+    assert not any(m.split(".")[0] == "cv2" for m in imported if m), imported
     assert "evennicer_slam_tpu_torch.data.synthetic" in sys.modules
