@@ -44,7 +44,21 @@ bound):
     synchronisations counted, then the sequence's end (the final colour
     refinement); the ATE, the kernels' launches and a checkpoint restored
     bit for bit; then ``EvenNICERSLAM.run`` over frames 0-25 with RGB-D +
-    event on every frame, its ATE held below a camera held at frame 0.
+    event on every frame, its ATE held below a camera held at frame 0, and
+    its two final meshes (``final_mesh.ply``, ``final_mesh_eval_rec.ply``) at
+    the shipped resolution 256, each timed by part (sweep, marching, clean,
+    colours, export) with its faces and peak device memory;
+  - reconstruction (phase 13): ``Mesher.masked_occ_sweep`` at resolution 64
+    on that fitted map on the card and on the CPU (logits and hull masks
+    within limits); both final meshes scored against the analytic room
+    (``scene_gt_mesh``) with ``tools/eval_recon.py`` — the accuracy of
+    ``final_mesh.ply`` and the eval-rec mesh's completion ratio over the
+    observed surface held to bars, which the meshes of an untransposed
+    volume and of the map before its first mapping call must fail — and the
+    eval-rec mesh's depth L1 of a few interior views;
+    then the command line, ``evennicer_slam_tpu_torch.run.main``, in process
+    over frames 0-5 into ``build/cli_out``: a checkpoint, ``final_mesh.ply``
+    and a finite ATE of that checkpoint.
 
 Scene grids and decoders start random, from a seed; only the mapping phase
 fits them. Every phase that fails ends the run with a non-zero exit code. Without a CUDA
@@ -59,6 +73,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -68,12 +83,14 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import yaml
 
 if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device; the port runs on a GPU\n")
     sys.exit(1)
 
 from evennicer_slam_tpu_torch import convert  # noqa: E402
+from evennicer_slam_tpu_torch import run as port_run  # noqa: E402
 from evennicer_slam_tpu_torch.config import (  # noqa: E402
     default_config_path,
     load_config,
@@ -95,8 +112,12 @@ from evennicer_slam_tpu_torch.core.rays import (  # noqa: E402
 from evennicer_slam_tpu_torch.data.datasets import get_dataset  # noqa: E402
 from evennicer_slam_tpu_torch.data.synthetic import (  # noqa: E402
     make_synthetic_replica,
+    scene_gt_mesh,
     synthetic_frames,
 )
+from evennicer_slam_tpu_torch.mesh import mesher as mesher_module  # noqa: E402
+from evennicer_slam_tpu_torch.mesh.mesher import Mesher  # noqa: E402
+from evennicer_slam_tpu_torch.mesh.trimesh_lite import Mesh  # noqa: E402
 from evennicer_slam_tpu_torch.models.decoders import (  # noqa: E402
     init_nice_decoders,
     pack_grids_for_tracking,
@@ -121,6 +142,13 @@ from evennicer_slam_tpu_torch.slam.tracker import (  # noqa: E402
     _prep_event_inputs,
     track_frame,
     tracking_loss,
+)
+from evennicer_slam_tpu_torch.tools.eval_ate import evaluate_checkpoint  # noqa: E402
+from evennicer_slam_tpu_torch.tools.eval_recon import (  # noqa: E402
+    calc_2d_metric,
+    calc_3d_metric,
+    completion_seen,
+    seen_surface,
 )
 from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger  # noqa: E402
 from evennicer_slam_tpu_torch.utils.optim import tree_map  # noqa: E402
@@ -1279,52 +1307,301 @@ def pipeline_from_disk(frag, dev, ate_in_memory):
     return [f"pipeline from disk: {f}" for f in failed], res, (n_fwd, n_bwd)
 
 
-def run_pipeline(frag, dev, rgbd_every_frame, seed=None, plant=None, label="every"):
+def run_pipeline(frag, dev, rgbd_every_frame, seed=None, plant=None, label="every",
+                 mesh=False):
     """``EvenNICERSLAM.run`` over frames 0-25 of the scene on disk (no
     checkpoint, no final colour refinement: the scene runs on) with RGB-D
     on every ``rgbd_every_frame``-th frame; ``seed`` replaces the
-    configuration's, ``plant(slam)`` plants a fault before the first frame.
-    Returns (ATE, RMSE of a camera held at frame 0, per-frame error in mm,
-    the pipeline), lengths in metres."""
+    configuration's, ``plant(slam)`` plants a fault before the first frame;
+    ``mesh`` writes both final meshes (``meshing.eval_rec`` on) at the
+    configuration's resolution. Returns (ATE, RMSE of a camera held at frame
+    0, per-frame error in mm, the pipeline), lengths in metres."""
     cfg = pipeline_config(frag)
     cfg["event"]["rgbd_every_frame"] = rgbd_every_frame
     cfg["data"]["output"] = os.path.join(SCENE_DIR, f"output_{label}")
+    cfg["meshing"]["eval_rec"] = mesh
     if seed is not None:
         cfg["seed"] = seed
     slam = EvenNICERSLAM(cfg, device=dev)
     if plant is not None:
         plant(slam)
-    est = slam.run(end_frame=MAP_FRAMES, mesh=False, checkpoint=False)[:MAP_FRAMES]
+    est = slam.run(end_frame=MAP_FRAMES, mesh=mesh, checkpoint=False)[:MAP_FRAMES]
     gt = slam.gt_c2w_list[:MAP_FRAMES].astype(np.float64)
     err = np.linalg.norm(est[:, :3, 3].astype(np.float64) - gt[:, :3, 3], axis=1)
     held = float(np.sqrt(np.mean(np.sum((gt[:, :3, 3] - gt[0, :3, 3]) ** 2, axis=1))))
     return float(np.sqrt(np.mean(err ** 2))), held, [round(1e3 * e, 2) for e in err], slam
 
 
+def instrument_mesher(slam, records):
+    """Wrap ``slam.mesher.get_mesh``: each call appends its seconds by part,
+    its vertex and face counts (``Mesher.last_stats``) and the device
+    memory it peaked at to ``records``."""
+    get_mesh = slam.mesher.get_mesh
+
+    def measured(path, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = get_mesh(path, *args, **kw)
+        records.append({"mesh": os.path.basename(path), **slam.mesher.last_stats,
+                        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "above_start_gib": (torch.cuda.max_memory_allocated() - base) / 2**30})
+        return out
+
+    slam.mesher.get_mesh = measured
+
+
 def pipeline_every_frame(frag, dev):
     """The pipeline from disk with RGB-D + event on every frame, through
-    ``EvenNICERSLAM.run``: its ATE of frames 0-25 must lie below the RMSE of
-    a camera held at frame 0, as phase 10's does on the same schedule (the
-    bench schedule's bar does not tell a tracker from a held camera).
-    Returns (failures, results, launches)."""
+    ``EvenNICERSLAM.run`` with its meshes (``final_mesh.ply`` and
+    ``final_mesh_eval_rec.ply`` at resolution 256): its ATE of frames 0-25
+    must lie below the RMSE of a camera held at frame 0, as phase 10's does
+    on the same schedule (the bench schedule's bar does not tell a tracker
+    from a held camera). Returns (failures, results, launches, the pipeline,
+    its map before the first mapping call, the meshes' records)."""
+    mesh_recs, start = [], {}
+
+    def plant(slam):
+        start["state"] = copy.deepcopy((slam.grids, slam.decoders))
+        instrument_mesher(slam, mesh_recs)
+
     reset_launches()
     t0 = time.perf_counter()
-    ate, held, err, slam = run_pipeline(frag, dev, 1)
+    ate, held, err, slam = run_pipeline(frag, dev, 1, plant=plant, mesh=True)
     torch.cuda.synchronize()
     n_fwd, n_bwd = launches()
     want = 2 * slam.t_cfg.iters * (MAP_FRAMES - 1)
     res = {"frames": MAP_FRAMES, "ate_rmse_m": ate, "held_camera_rmse_m": held,
            "err_mm_per_frame": err, "keyframes": slam.mapper.keyframes.indices,
            "n_fast_maps": slam.n_fast_maps, "fwd_launches": n_fwd, "bwd_launches": n_bwd,
-           "run_s": time.perf_counter() - t0}
-    say("pipeline from disk, RGB-D + event on every frame (EvenNICERSLAM.run): "
-        + json.dumps(res))
+           "run_s": time.perf_counter() - t0,
+           "meshing_s": sum(r["total_s"] for r in mesh_recs)}
+    say("pipeline from disk, RGB-D + event on every frame (EvenNICERSLAM.run, with its "
+        "meshes): " + json.dumps(res))
     failed = []
     if not ate < held:
         failed.append(f"ATE {ate:.4f} m is not below the held camera's {held:.4f} m")
     if (n_fwd, n_bwd) != (want, want):
         failed.append(f"the decode kernels launched {n_fwd} / {n_bwd} times, expected {want}")
-    return [f"pipeline from disk, RGB-D every frame: {f}" for f in failed], res, (n_fwd, n_bwd)
+    if [r["mesh"] for r in mesh_recs] != ["final_mesh.ply", "final_mesh_eval_rec.ply"]:
+        failed.append(f"run() wrote the meshes {[r['mesh'] for r in mesh_recs]}")
+    return ([f"pipeline from disk, RGB-D every frame: {f}" for f in failed], res,
+            (n_fwd, n_bwd), slam, start["state"], mesh_recs)
+
+
+# ---- 13. reconstruction ---------------------------------------------------------------
+# The meshes of phase 12's every-frame run, scored against the analytic room
+# (data/synthetic.py::scene_gt_mesh): accuracy and completion over the whole
+# ground truth (tools/eval_recon.py::calc_3d_metric, ICP-aligned), completion
+# over the ground truth that frames 0-25 observed
+# (tools/eval_recon.py::seen_surface and completion_seen), and the depth L1 of a few interior
+# views (calc_2d_metric, all views: 26 frames observe too little of the room
+# for the unseen-view rejection to leave any). Bars: RECON_BARS; two planted
+# faults must fail them.
+SWEEP_CHECK_RES = 64  # 262,144 lattice points, card against CPU
+# card against CPU from the same grids and decoders: the decode's float32
+# products sum in another order (logits 1e-5 apart expected, a fault in the
+# lattice or the decode moves them by whole units); the hull test is
+# elementwise float32 on both sides, so its masks should agree exactly, and
+# a point within rounding of a plane may flip (the CPU tests allow this share)
+SWEEP_LOGIT_ATOL = 1e-2
+SWEEP_MASK_SHARE = 1e-4
+# Bars on the two final meshes (measured on an NVIDIA H100 80GB HBM3 at
+# 700 W, scripts/ate_spread.py --pipeline --mesh over seeds 42, 42, 0-5;
+# PERF.md section 6). final_mesh.ply keeps what the keyframes saw; its
+# accuracy reads 1.54-2.52 cm sound, 9.36-10.62 cm with x and y swapped and
+# 16.86-26.51 cm from the map before mapping, so it holds the accuracy bar.
+# The eval-rec mesh keeps whatever any frame's frustum saw, floaters behind
+# the walls included: its accuracy (1.67-8.37 cm sound) overlaps the swap's
+# (9.31-12.76 cm), so it holds the completion ratio over the observed
+# surface (96.86-99.57 % sound, 85.91-89.21 % swapped). A faulty build makes
+# both meshes faulty, so a planted fault is caught when either mesh fails.
+RECON_BARS = {
+    "final_mesh": {"accuracy (cm)": ("<=", 5.0)},
+    "final_mesh_eval_rec": {"completion_ratio_seen (<5cm %)": (">=", 94.0)},
+}
+RECON_2D_VIEWS = 10
+RECON_FAULTS = ("volume without its transpose", "map before its first mapping call")
+CLI_FRAMES = 6
+CLI_OUT = os.path.join(cuda_build.BUILD_DIR, "cli_out")
+
+
+def sweep_card_vs_cpu(slam):
+    """``masked_occ_sweep`` at resolution SWEEP_CHECK_RES on the card and on
+    the CPU from the same grids, decoders and hull."""
+    grid = slam.mesher.get_grid_uniform(SWEEP_CHECK_RES)
+    hull = slam.mesher.get_bound_from_frames(slam.mapper.keyframes.frames)
+    t0 = time.perf_counter()
+    z_card = slam.mesher.masked_occ_sweep(grid["xyz"], hull, slam.grids,
+                                          slam.decoders).cpu().numpy()
+    card_s = time.perf_counter() - t0
+
+    def to_cpu(t):
+        return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+
+    cpu_mesher = Mesher(slam.cfg, slam.cam, slam.settings, slam.bound, device="cpu")
+    t0 = time.perf_counter()
+    z_cpu = cpu_mesher.masked_occ_sweep(grid["xyz"], hull, tree_map(to_cpu, slam.grids),
+                                        tree_map(to_cpu, slam.decoders)).numpy()
+    cpu_s = time.perf_counter() - t0
+    in_card, in_cpu = z_card != 100, z_cpu != 100
+    both = in_card & in_cpu
+    res = {"points": int(z_card.size), "hull_facets": int(len(hull.equations)),
+           "inside_share": float(in_card.mean()),
+           "mask_disagreements": int((in_card != in_cpu).sum()),
+           "mask_limit": int(SWEEP_MASK_SHARE * z_card.size),
+           "max_logit_diff": float(np.abs(z_card - z_cpu)[both].max()),
+           "logit_atol": SWEEP_LOGIT_ATOL,
+           "logit_range": [float(z_card[both].min()), float(z_card[both].max())],
+           "card_s": card_s, "cpu_s": cpu_s}
+    failed = []
+    if not res["mask_disagreements"] <= res["mask_limit"]:
+        failed.append(f"{res['mask_disagreements']} hull-mask disagreements")
+    if not res["max_logit_diff"] <= SWEEP_LOGIT_ATOL:
+        failed.append(f"logits {res['max_logit_diff']:.3e} apart")
+    return failed, res
+
+
+def seen_gt_points(slam, gt_mesh):
+    """Ground-truth surface samples that frames 0-25 observed
+    (``tools/eval_recon.py::seen_surface``), and their share."""
+    gt_pts, seen = seen_surface(gt_mesh, ((slam.gt_c2w_list[i], slam.frame_reader[i].depth)
+                                          for i in range(MAP_FRAMES)), slam.cam)
+    return gt_pts[seen], float(seen.mean())
+
+
+def score_mesh(rec_path, gt_path, seen_pts, bars):
+    """3-D metrics against the whole ground truth, completion over its seen
+    part (``tools/eval_recon.py``), and whether every one of ``bars``
+    ({metric: (op, value)}) holds. A missing mesh passes none."""
+    if not os.path.exists(rec_path):
+        return {"mesh": None, "passes_bars": False}
+    t0 = time.perf_counter()
+    res = {**calc_3d_metric(rec_path, gt_path), **completion_seen(rec_path, seen_pts),
+           "score_s": time.perf_counter() - t0}
+    res["passes_bars"] = all(res[k] <= v if op == "<=" else res[k] >= v
+                             for k, (op, v) in bars.items())
+    return res
+
+
+def mesh_faults(slam, start_state, gt_path, seen_pts):
+    """Both final meshes made again with each of RECON_FAULTS planted, and
+    scored against their bars: {fault: {mesh: scores}}."""
+    last = MAP_FRAMES - 1
+    faults = {}
+    for fault in RECON_FAULTS:
+        swapped = fault == RECON_FAULTS[0]
+        grids, decoders = (slam.grids, slam.decoders) if swapped else start_state
+        faults[fault] = {}
+        for name in RECON_BARS:
+            path = os.path.join(slam.output, "mesh", f"fault_{fault.split()[0]}_{name}.ply")
+            if os.path.exists(path):
+                os.remove(path)
+            with untransposed_volume() if swapped else contextlib.nullcontext():
+                mesh = slam.mesher.get_mesh(
+                    path, grids, decoders, slam.mapper.keyframes.frames,
+                    slam.estimate_c2w_list, last,
+                    get_mask_use_all_frames=name == "final_mesh_eval_rec")
+            faults[fault][name] = {"faces": 0 if mesh is None else len(mesh.faces),
+                                   "mesh_s": slam.mesher.last_stats.get("total_s"),
+                                   **score_mesh(path, gt_path, seen_pts, RECON_BARS[name])}
+    return faults
+
+
+@contextlib.contextmanager
+def untransposed_volume():
+    """Planted fault: the sweep's flat 'xy'-order values taken as the volume
+    without the [1, 0, 2] transpose (x and y swapped)."""
+    real = mesher_module.marching_cubes
+    mesher_module.marching_cubes = lambda vol, **kw: real(vol.permute(1, 0, 2), **kw)
+    try:
+        yield
+    finally:
+        mesher_module.marching_cubes = real
+
+
+def command_line(frag):
+    """``evennicer_slam_tpu_torch.run.main`` in process on the scene on disk:
+    frames 0-5 into ``CLI_OUT``; a checkpoint, ``mesh/final_mesh.ply`` and a
+    finite ATE of the checkpoint (``tools/eval_ate.evaluate_checkpoint``,
+    no plot: the card's machine has no matplotlib)."""
+    shutil.rmtree(CLI_OUT, ignore_errors=True)
+    os.makedirs(CLI_OUT)
+    cfg = pipeline_config(frag)
+    cfg["data"]["output"] = CLI_OUT
+    path = os.path.join(CLI_OUT, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    reset_launches()
+    t0 = time.perf_counter()
+    port_run.main([path, "--end_frame", str(CLI_FRAMES), "--output", CLI_OUT])
+    run_s = time.perf_counter() - t0
+    n_fwd, n_bwd = launches()
+    want = sum(cfg["tracking"]["iters"] * (2 if i % cfg["event"]["rgbd_every_frame"] == 0
+                                           else 1) for i in range(1, CLI_FRAMES))
+    ckpt = CheckpointLogger.latest(os.path.join(CLI_OUT, "ckpts"))
+    ate = evaluate_checkpoint(ckpt, scale=cfg["scale"], plot=None) if ckpt else {}
+    rmse = ate.get("absolute_translational_error.rmse", float("nan"))
+    mesh_path = os.path.join(CLI_OUT, "mesh", "final_mesh.ply")
+    res = {"frames": CLI_FRAMES, "run_s": run_s, "checkpoint": ckpt and os.path.basename(ckpt),
+           "ate_rmse_m": rmse, "final_mesh": os.path.exists(mesh_path),
+           "final_mesh_faces": len(Mesh.load(mesh_path).faces) if os.path.exists(mesh_path)
+           else 0, "fwd_launches": n_fwd, "bwd_launches": n_bwd, "expected_launches": want}
+    failed = []
+    if not (ckpt and ckpt.endswith(f"{CLI_FRAMES - 1:05d}.npz") and math.isfinite(rmse)):
+        failed.append(f"checkpoint {ckpt}, ATE {rmse}")
+    if not res["final_mesh_faces"] > 0:
+        failed.append("no mesh/final_mesh.ply")
+    if (n_fwd, n_bwd) != (want, want):
+        failed.append(f"the decode kernels launched {n_fwd} / {n_bwd} times, expected {want}")
+    return failed, res, (n_fwd, n_bwd)
+
+
+def reconstruction(frag, slam, start_state, mesh_recs):
+    """Phase 13: (a) the sweep on the card against the CPU, (b) the meshes
+    of phase 12's every-frame run by part, (c) both meshes scored against
+    the analytic room, each held to its RECON_BARS, and made again with each
+    of RECON_FAULTS planted (each must fail the bars of one at least), (d)
+    the command line in process.
+    Returns (failures, results, launches of the command line)."""
+    t_phase = time.perf_counter()
+    failed, res = [], {}
+    reset_launches()
+    f, res["sweep_card_vs_cpu"] = sweep_card_vs_cpu(slam)
+    failed += [f"sweep card vs CPU: {x}" for x in f]
+    res["meshes"] = list(mesh_recs)
+
+    out = slam.output
+    gt_path = os.path.join(out, "gt_mesh.ply")
+    gt_mesh = scene_gt_mesh(ROOM, furnished=True)
+    gt_mesh.export(gt_path)
+    seen_pts, seen_frac = seen_gt_points(slam, gt_mesh)
+    res["gt_surface_seen_frac"] = seen_frac
+    res["bars"] = RECON_BARS
+    res["scores"] = {name: score_mesh(os.path.join(out, "mesh", name + ".ply"), gt_path,
+                                      seen_pts, bars) for name, bars in RECON_BARS.items()}
+    for name, score in res["scores"].items():
+        if not score["passes_bars"]:
+            failed.append(f"{name}.ply fails its bars")
+    rec_path = os.path.join(out, "mesh", "final_mesh_eval_rec.ply")
+    t0 = time.perf_counter()
+    res["scores"]["final_mesh_eval_rec"]["2d"] = calc_2d_metric(rec_path, gt_path,
+                                                                n_imgs=RECON_2D_VIEWS)
+    res["scores"]["final_mesh_eval_rec"]["2d_s"] = time.perf_counter() - t0
+
+    res["faults"] = mesh_faults(slam, start_state, gt_path, seen_pts)
+    for fault, scores in res["faults"].items():
+        if all(score["passes_bars"] for score in scores.values()):
+            failed.append(f"planted fault '{fault}' passes the bars of both meshes")
+    res["mesher_launches"] = list(launches())
+    if res["mesher_launches"] != [0, 0]:
+        failed.append(f"the mesher launched the decode kernels {res['mesher_launches']} times")
+
+    f, res["command_line"], cli_launches = command_line(frag)
+    failed += [f"command line: {x}" for x in f]
+    res["phase_s"] = time.perf_counter() - t_phase
+    say("reconstruction: " + json.dumps(res))
+    return [f"reconstruction: {x}" for x in failed], res, cli_launches
 
 
 def main():
@@ -1546,11 +1823,16 @@ def main():
     failed_pipe, pipe_res, (launches_pipe_fwd, launches_pipe_bwd) = pipeline_from_disk(
         frag, dev, bench_res["ate_rmse_m"])
     failed += failed_pipe
-    failed_every, every_res, (launches_every_fwd, launches_every_bwd) = pipeline_every_frame(
-        frag, dev)
+    (failed_every, every_res, (launches_every_fwd, launches_every_bwd), every_slam,
+     start_state, mesh_recs) = pipeline_every_frame(frag, dev)
     failed += failed_every
     launches_pipe_fwd += launches_every_fwd
     launches_pipe_bwd += launches_every_bwd
+
+    # ---- 13. reconstruction -------------------------------------------------------
+    failed_rec, rec_res, (launches_cli_fwd, launches_cli_bwd) = reconstruction(
+        frag, every_slam, start_state, mesh_recs)
+    failed += failed_rec
     if failed:
         raise RuntimeError("; ".join(failed))
 
@@ -1565,11 +1847,13 @@ def main():
         "route": "cuda",
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:177",
-        "launches": launches_main + launches_track_fwd + launches_map_fwd + launches_pipe_fwd,
+        "launches": (launches_main + launches_track_fwd + launches_map_fwd + launches_pipe_fwd
+                     + launches_cli_fwd),
         "launches_scores": launches_main,
         "launches_tracking": launches_track_fwd,
         "launches_map_and_track": launches_map_fwd,
         "launches_pipeline": launches_pipe_fwd,
+        "launches_command_line": launches_cli_fwd,
         "max_abs_err": max(main_res["max_abs_err"], small["max_abs_err"]),
         "ms": main_res["ms"],
         "plain_ms": main_res["plain_ms"],
@@ -1588,10 +1872,11 @@ def main():
         "route": "cuda",
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode_bwd.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:188",
-        "launches": launches_track_bwd + launches_map_bwd + launches_pipe_bwd,
+        "launches": launches_track_bwd + launches_map_bwd + launches_pipe_bwd + launches_cli_bwd,
         "launches_tracking": launches_track_bwd,
         "launches_map_and_track": launches_map_bwd,
         "launches_pipeline": launches_pipe_bwd,
+        "launches_command_line": launches_cli_bwd,
         "max_abs_err": max(bwd_main["max_abs_err"], bwd_small["max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
@@ -1620,6 +1905,20 @@ def main():
         "fps_blocks", "fps_median", "ate_rmse_m", "ate_in_memory_phase10_m", "n_fast_maps",
         "syncs_in_steady_block", "peak_memory_gib", "checkpoint_bitwise")}
         | {"every_frame": {k: every_res[k] for k in ("ate_rmse_m", "held_camera_rmse_m")}}))
+    say("reconstruction: " + json.dumps({
+        "sweep_card_vs_cpu": {k: rec_res["sweep_card_vs_cpu"][k] for k in (
+            "mask_disagreements", "max_logit_diff")},
+        "meshes": [{k: r[k] for k in ("mesh", "total_s", "sweep_s", "march_s", "clean_s",
+                                      "color_s", "export_s", "faces", "peak_memory_gib")}
+                   for r in rec_res["meshes"]],
+        "scores": {name: {k: score[k] for k in (
+            "accuracy (cm)", "completion (cm)", "completion ratio (<5cm %)",
+            "completion_ratio_seen (<5cm %)", "passes_bars")}
+            for name, score in rec_res["scores"].items()},
+        "faults_pass_bars": {fault: {name: score["passes_bars"] for name, score in by.items()}
+                             for fault, by in rec_res["faults"].items()},
+        "command_line": {k: rec_res["command_line"][k] for k in ("checkpoint", "ate_rmse_m",
+                                                                 "final_mesh")}}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

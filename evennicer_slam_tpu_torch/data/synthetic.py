@@ -9,7 +9,8 @@ scene has made the round trip through its PNG files: colour quantised to 8
 bits, depth to 16 bits at ``PNG_DEPTH_SCALE``, the event image as 8-bit
 counts with polarity order [-, +], and the pose. :func:`make_synthetic_replica`
 writes the same scene to disk in the Replica-event layout (PNG through
-``data/png.py``). The ground-truth mesh comes with the mesher.
+``data/png.py``). :func:`scene_gt_mesh` builds the scene's analytic
+ground-truth mesh for the reconstruction tools.
 """
 
 from __future__ import annotations
@@ -232,6 +233,54 @@ def render_box_views(
         colors[m] = _prim_color(prim, ph, normal)
 
     return colors.reshape(H, W, 3), depth.reshape(H, W).astype(np.float32)
+
+
+def scene_gt_mesh(bound: np.ndarray, furnished: bool = False):
+    """Analytic ground-truth mesh of the synthetic scene (room interior +
+    furniture when ``furnished``) for the recon eval tools."""
+    from evennicer_slam_tpu_torch.mesh.trimesh_lite import Mesh, concatenate
+
+    def box_mesh(lo, hi):
+        (x0, y0, z0), (x1, y1, z1) = lo, hi
+        v = np.array([
+            [x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0],
+            [x0, y0, z1], [x1, y0, z1], [x1, y1, z1], [x0, y1, z1],
+        ])
+        quads = [
+            (0, 1, 2, 3), (4, 5, 6, 7), (0, 1, 5, 4),
+            (2, 3, 7, 6), (0, 3, 7, 4), (1, 2, 6, 5),
+        ]
+        faces = []
+        for a, b, c, d in quads:
+            faces += [[a, b, c], [a, c, d]]
+        return Mesh(v, np.array(faces))
+
+    def sphere_mesh(c, r, n_lat=16, n_lon=24):
+        th = np.linspace(0, np.pi, n_lat)
+        ph = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+        T, P = np.meshgrid(th, ph, indexing="ij")
+        v = np.stack([
+            c[0] + r * np.sin(T) * np.cos(P),
+            c[1] + r * np.sin(T) * np.sin(P),
+            c[2] + r * np.cos(T),
+        ], axis=-1).reshape(-1, 3)
+        faces = []
+        for a in range(n_lat - 1):
+            for b in range(n_lon):
+                b2 = (b + 1) % n_lon
+                i00, i01 = a * n_lon + b, a * n_lon + b2
+                i10, i11 = (a + 1) * n_lon + b, (a + 1) * n_lon + b2
+                faces += [[i00, i10, i11], [i00, i11, i01]]
+        return Mesh(v, np.array(faces))
+
+    meshes = [box_mesh(bound[:, 0], bound[:, 1])]
+    if furnished:
+        for prim in scene_primitives(bound):
+            if prim["type"] == "box":
+                meshes.append(box_mesh(prim["lo"], prim["hi"]))
+            else:
+                meshes.append(sphere_mesh(prim["c"], prim["r"]))
+    return concatenate(meshes)
 
 
 def _look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:

@@ -1,0 +1,83 @@
+"""The port's command line (counterpart of the repository's ``run.py``).
+
+    python -m evennicer_slam_tpu_torch.run configs/Replica/room0.yaml \
+        [--input_folder F] [--event_folder E] [--output O] [--resume] \
+        [--end_frame N] [--device cuda|cpu]
+
+Runs ``EvenNICERSLAM.run`` over the sequence: checkpoints every
+``mapping.ckpt_freq`` frames, a mesh every ``mapping.mesh_freq`` frames,
+then ``mesh/final_mesh.ply`` (and ``mesh/final_mesh_eval_rec.ply`` with
+``meshing.eval_rec``). ``--resume`` restarts from the latest checkpoint in
+the output directory. The run is on the CUDA device unless ``--device cpu``
+asks for the CPU.
+
+Not ported yet, and refused before the first frame: ``--imap`` (ROADMAP
+Queue 1 item 3), ``--viz_port`` and a configuration with ``enable_vis: true``
+(the visualiser, item 4; set ``enable_vis: false``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(
+        description="Arguments for running EvenNICER-SLAM (PyTorch port)."
+    )
+    parser.add_argument("config", type=str, help="Path to config file.")
+    parser.add_argument("--input_folder", type=str,
+                        help="input folder, overrides the config")
+    parser.add_argument("--event_folder", type=str,
+                        help="event input folder, overrides the config")
+    parser.add_argument("--output", type=str,
+                        help="output folder, overrides the config")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint")
+    parser.add_argument("--end_frame", type=int, default=None,
+                        help="stop after this many frames (debugging)")
+    parser.add_argument("--viz_port", type=int, default=None,
+                        help="the interactive viewer (not ported: ROADMAP Queue 1 item 4)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device of the run (default cuda; cpu for tests)")
+    nice_parser = parser.add_mutually_exclusive_group(required=False)
+    nice_parser.add_argument("--nice", dest="nice", action="store_true")
+    nice_parser.add_argument("--imap", dest="nice", action="store_false",
+                             help="iMAP (not ported: ROADMAP Queue 1 item 3)")
+    parser.set_defaults(nice=True)
+    return parser.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not args.nice:
+        raise NotImplementedError("--imap: iMAP is not ported (ROADMAP Queue 1 item 3, "
+                                  "the non-Fourier embeddings and iMAP)")
+    if args.viz_port is not None:
+        raise NotImplementedError("--viz_port: the viewer is not ported (ROADMAP Queue 1 "
+                                  "item 4, host side, the other datasets, and tools)")
+
+    from evennicer_slam_tpu_torch.config import default_config_path, load_config
+    from evennicer_slam_tpu_torch.slam.pipeline import EvenNICERSLAM
+    from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger
+    from evennicer_slam_tpu_torch.utils.runtime import setup_torch
+
+    cfg = load_config(args.config, default_config_path(args.nice))
+    if args.device.startswith("cuda"):
+        setup_torch(verbose=cfg.get("verbose", False))
+    slam = EvenNICERSLAM(cfg, args, nice=args.nice, device=args.device)
+
+    start = 0
+    if args.resume:
+        ckpt = CheckpointLogger.latest(os.path.join(slam.output, "ckpts"))
+        if ckpt:
+            start = CheckpointLogger.restore(slam, ckpt)
+            print(f"Resumed from {ckpt} at frame {start}")
+    # a resumed run goes through run() too, so its checkpoint and mesh
+    # cadence and its final meshes are those of an uninterrupted run
+    return slam.run(end_frame=args.end_frame, start_frame=start)
+
+
+if __name__ == "__main__":
+    main()

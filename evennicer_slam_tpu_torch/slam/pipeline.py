@@ -15,10 +15,15 @@ takes the tracker's device pose; the host is held back only by an event
 ``MAX_INFLIGHT_MAPS`` mapping calls old. In steady state the host enqueues
 work and does not wait for the device.
 
+``run`` meshes the map every ``mesh_freq`` mapped frames and at the end
+(``mesh/mesher.py``): between frames, since meshing reads data-dependent
+shapes back to the host.
+
 Not ported yet, and raising ``NotImplementedError`` before the first frame:
 ``sync_method: loose|free``, ``parallel.map_devices`` and data parallelism
-(ROADMAP Queue 1 item 5), iMAP (``nice=False``, item 3), the visualiser
-(``enable_vis``, item 4) and the mesher (``run(mesh=True)``, item 2).
+(ROADMAP Queue 1 item 5), iMAP (``nice=False``, and its
+``render_ray_along_normal`` mesh colours, item 3) and the visualiser
+(``enable_vis``, item 4).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 from evennicer_slam_tpu_torch.config import get_model
 from evennicer_slam_tpu_torch.data.datasets import get_dataset
 from evennicer_slam_tpu_torch.data.prefetch import PrefetchingReader
+from evennicer_slam_tpu_torch.mesh.mesher import Mesher, check_color_method
 from evennicer_slam_tpu_torch.models.eventnet import (
     init_eventnet,
     load_eventnet_npz,
@@ -79,6 +85,7 @@ def check_supported(cfg: Dict[str, Any], nice: bool) -> None:
     if not nice:
         raise NotImplementedError("nice=False (iMAP): ROADMAP Queue 1 item 3 "
                                   "(the non-Fourier embeddings and iMAP)")
+    check_color_method(cfg["meshing"]["color_mesh_extraction_method"])
     if cfg.get("enable_vis", True):
         raise NotImplementedError(
             "enable_vis: the visualiser is not ported (ROADMAP Queue 1 item 4); "
@@ -176,6 +183,7 @@ class EvenNICERSLAM:
         self.n_fast_maps = 0
         self._inflight_maps: deque = deque()
         self.timers = PhaseTimers()
+        self._mesher = None
 
         # event divergence guard: the tracker emits the predicted-vs-GT event
         # correlation each frame; if it stays below guard_corr_threshold for
@@ -197,6 +205,17 @@ class EvenNICERSLAM:
         self._metric_queue: list = []
         self._metric_batch = int(cfg.get("metrics_flush_batch", 16))
         self.metrics = MetricsLogger(self.output)
+
+    @property
+    def mesher(self) -> Mesher:
+        """The mesher, built on first use from the pipeline's own render
+        settings: the sweep and the vertex colours decode through the f32
+        ``nice_forward``, as the mapper's decode does (only the tracker's
+        settings turn the fused kernels on)."""
+        if self._mesher is None:
+            self._mesher = Mesher(self.cfg, self.cam, self.settings, self.bound,
+                                  device=self.device)
+        return self._mesher
 
     # ------------------------------------------------------------------
     # poses: device-backed, read back in one copy on access
@@ -469,14 +488,17 @@ class EvenNICERSLAM:
     def run(self, end_frame: Optional[int] = None, mesh: bool = True, checkpoint: bool = True,
             start_frame: int = 0) -> np.ndarray:
         """The whole sequence; ``start_frame > 0`` resumes after
-        ``CheckpointLogger.restore``. Checkpoints every ``ckpt_freq`` mapped
-        frames and after the last. ``mesh=True`` raises before the first
-        frame: the mesher is not ported (ROADMAP Queue 1 item 2)."""
-        if mesh:
-            raise NotImplementedError("meshing: the mesher is not ported (ROADMAP Queue 1 "
-                                      "item 2); run(mesh=False)")
+        ``CheckpointLogger.restore`` with the same checkpoint and mesh
+        cadence. Checkpoints every ``ckpt_freq`` mapped frames and after the
+        last; with ``mesh``, a mesh every ``mesh_freq`` mapped frames, then
+        ``mesh/final_mesh.ply`` and, with ``meshing.eval_rec``,
+        ``mesh/final_mesh_eval_rec.ply`` cleaned by every frame's frustum."""
         n = self.n_img if end_frame is None else min(end_frame, self.n_img)
+        mesh_freq = self.cfg["mapping"].get("mesh_freq", 50)
         ckpt_freq = self.cfg["mapping"].get("ckpt_freq", 500)
+        mesh_dir = os.path.join(self.output, "mesh")
+        if mesh:
+            os.makedirs(mesh_dir, exist_ok=True)
         for idx in range(start_frame, n):
             mapped = self.step(idx)
             if self.verbose:
@@ -487,8 +509,22 @@ class EvenNICERSLAM:
             if mapped and checkpoint and idx > 0 and idx % ckpt_freq == 0:
                 self.mapper.keyframes.sync_host_poses()
                 self.logger.log(self, idx)
+            if mapped and mesh and idx > 0 and idx % mesh_freq == 0 and idx != n - 1:
+                self._get_mesh(os.path.join(mesh_dir, f"{idx:05d}_mesh.ply"), idx)
+        last = n - 1
         self._flush_metrics(force=True)
         self.mapper.keyframes.sync_host_poses()
         if checkpoint:
-            self.logger.log(self, n - 1)
+            self.logger.log(self, last)
+        if mesh:
+            self._get_mesh(os.path.join(mesh_dir, "final_mesh.ply"), last)
+            if self.cfg["meshing"].get("eval_rec", False):
+                self._get_mesh(os.path.join(mesh_dir, "final_mesh_eval_rec.ply"), last,
+                               get_mask_use_all_frames=True)
         return self.estimate_c2w_list
+
+    def _get_mesh(self, path: str, idx: int, **kw):
+        self.mapper.keyframes.sync_host_poses()
+        return self.mesher.get_mesh(path, self.grids, self.decoders,
+                                    self.mapper.keyframes.frames, self.estimate_c2w_list,
+                                    idx, **kw)

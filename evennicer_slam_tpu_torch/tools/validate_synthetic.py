@@ -1,0 +1,227 @@
+"""Full-toolchain validation on the synthetic scene (counterpart of
+``evennicer_slam_tpu/tools/validate_synthetic.py``).
+
+Runs the port the way a user would on Replica — a sequence through
+`EvenNICERSLAM.run()` with periodic meshing/checkpoints and the final
+`final_mesh_eval_rec.ply` — then evaluates every offline metric the
+reference defines: ATE RMSE, 3D mesh accuracy/completion/ratio, the
+completion over the observed ground-truth surface, and the
+reference-protocol 2D depth-L1 against the scene's analytic ground-truth
+mesh. The run sets ``enable_vis: false``: the visualiser is not ported
+(ROADMAP Queue 1 item 4) and needs matplotlib, as does the trajectory
+plot (``--no_plot`` skips it).
+
+Prints one JSON line per metric block; exits nonzero if anything is missing.
+
+Usage:
+    python -m evennicer_slam_tpu_torch.tools.validate_synthetic \
+        [--frames 100] [--hw 680 1200] [--events] [--scene DIR] [--device cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description=__doc__.split("\n")[0],
+        epilog="The run sets enable_vis: false (the visualiser is not ported and "
+               "needs matplotlib).")
+    parser.add_argument("--frames", type=int, default=300)
+    parser.add_argument("--hw", type=int, nargs=2, default=(680, 1200))
+    parser.add_argument("--events", action="store_true")
+    parser.add_argument("--scene", default=os.path.join("build", "validate_synthetic"))
+    parser.add_argument("--n_imgs_2d", type=int, default=50)
+    parser.add_argument(
+        "--traj_step", type=float, default=0.004,
+        help="per-frame orbit angle (rad). With the coverage gaze sweep the"
+             " default keeps view rotation <= ~4 deg/frame; sweeping the"
+             " orbit faster starves mapping per region (measured:"
+             " 2.4 deg/frame orbit -> 0.2 m ATE on the plain scene)",
+    )
+    parser.add_argument(
+        "--plain", action="store_true",
+        help="empty box room + low-coverage orbit (the pre-round-3 scene);"
+             " default is the furnished scene (boxes, spheres, occluders)"
+             " with a coverage trajectory observing most of the GT surface",
+    )
+    parser.add_argument("--reuse_scene", action="store_true",
+                        help="keep an existing --scene directory when it"
+                             " matches the requested parameters (verified"
+                             " against the artifacts incl. a frame-0"
+                             " re-render); skips minutes of host ray"
+                             " tracing on reruns")
+    parser.add_argument("--predictor", choices=["unet", "esim"],
+                        default="unet",
+                        help="--events predictor: 'unet' (the shipped "
+                             "map-domain net; out-of-domain on scenes it "
+                             "was not trained on) or 'esim' (analytic, "
+                             "net-free, Bayes-optimal on this synthetic "
+                             "GT)")
+    parser.add_argument("--hires_events", action="store_true",
+                        help="--events at 0.25 scale with the per-pixel-"
+                             "constant event weight (the ablation's H2 "
+                             "recipe, benchmarks/event_ablation_r4.json)")
+    parser.add_argument("--prev_resize", choices=["nearest", "bilinear"],
+                        default="nearest",
+                        help="event.prev_resize: previous-image downscale "
+                             "filter. nearest = reference-exact; bilinear "
+                             "antialiases (helps the esim predictor on "
+                             "fast-rotation scenes; see "
+                             "TrackerConfig.prev_resize)")
+    parser.add_argument("--guard_fallback", choices=["warn", "esim"],
+                        default="warn",
+                        help="event.guard_fallback: what the runtime "
+                             "divergence guard does when the EventNet looks "
+                             "out-of-domain (prediction-vs-GT correlation "
+                             "collapse) — 'warn' (default) or 'esim' "
+                             "(auto-switch to the analytic predictor)")
+    parser.add_argument("--keyframe_every", type=int, default=None,
+                        help="override mapping.keyframe_every (the coverage"
+                             " trajectory pans faster than the reference's"
+                             " real-data walkthroughs; denser keyframes keep"
+                             " the overlap selector anchored)")
+    parser.add_argument("--no_plot", action="store_true",
+                        help="skip the trajectory plot (it needs matplotlib)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the run (default cuda; cpu for tests)")
+    args = parser.parse_args(argv)
+
+    import numpy as np
+
+    from evennicer_slam_tpu_torch.config import (
+        default_config_path,
+        load_config,
+        update_recursive,
+    )
+    from evennicer_slam_tpu_torch.data.synthetic import make_synthetic_replica
+    from evennicer_slam_tpu_torch.slam.pipeline import EvenNICERSLAM
+    from evennicer_slam_tpu_torch.tools.eval_ate import evaluate_ate
+    from evennicer_slam_tpu_torch.tools.eval_recon import (
+        calc_2d_metric, calc_3d_metric, completion_seen, seen_surface)
+    from evennicer_slam_tpu_torch.utils.runtime import setup_torch
+
+    if args.device.startswith("cuda"):
+        setup_torch(verbose=False)
+
+    H, W = args.hw
+    bound = np.array([[-2.0, 2.0], [-1.6, 1.6], [-1.2, 1.2]], np.float32)
+    step = args.traj_step
+    furnished = not args.plain
+    # Coverage trajectory: the gaze pans ~2x the eye's orbit speed and its
+    # height sweeps floor-to-ceiling, so the frusta observe most of the GT
+    # surface (the old orbit saw 14%; completion was coverage-limited).
+    # Parameters chosen by an offline sweep of per-frame view rotation vs
+    # coverage: this shape holds 0.50 deg/frame mean (0.72 max) — with
+    # keyframe_every=15 that is the same content turnover per keyframe
+    # interval (~7.5 deg) as the reference's real-data regime (~0.2 deg/frame
+    # x keyframe_every=50) — and observes ~70% of the furnished GT surface
+    # at --frames 1200 (pan length scales with frame count). An earlier
+    # 5.5x-pan variant hit 81% in 300 frames but rotated 2.1 deg/frame mean
+    # — beyond any trackable regime (measured 0.21 m ATE); coverage must
+    # come from sequence length, not a faster sweep. The scene's surface
+    # RELIEF (see data/synthetic.scene_primitives) is load-bearing: without
+    # a depth discontinuity in view, in-plane translation is depth-
+    # unconstrained and the const-speed motion model integrates open-loop
+    # (measured 2 cm/frame slide through a 40-frame ceiling-only stretch).
+    traj_kwargs = (
+        {"gaze_mult": 1.8, "pitch_base": 0.0, "pitch_amp": 1.5,
+         "pitch_freq": 3.0}
+        if furnished else {}
+    )
+    frag = make_synthetic_replica(
+        args.scene, n_frames=args.frames, H=H, W=W, fx=0.5 * W, fy=0.5 * W,
+        bound=bound, traj_step=step, furnished=furnished,
+        traj_kwargs=traj_kwargs, reuse_if_current=args.reuse_scene,
+    )
+    cfg = load_config(default_config_path(nice=True))
+    update_recursive(cfg, frag)
+    overrides = {
+        "verbose": False,
+        "enable_vis": False,
+        "mapping": {"ckpt_freq": max(1, args.frames // 2), "mesh_freq": 50},
+        "meshing": {"eval_rec": True},
+        "data": {"output": os.path.join(args.scene, "out")},
+    }
+    if args.keyframe_every is None and furnished:
+        # the 3x gaze pan turns over view content ~3x faster than the
+        # reference walkthroughs keyframe_every=50 was tuned for. MUST be a
+        # multiple of mapping.every_frame (5): keyframes are only added at
+        # mapped frames, so e.g. 16 degrades to an effective lcm(16,5)=80
+        # cadence — 4 keyframes in 300 frames — and the mesher (whose
+        # extraction hull and seen-culling come from keyframes) discards
+        # most of the mapped scene (measured: completion_seen 43 cm).
+        overrides["mapping"]["keyframe_every"] = 15
+    elif args.keyframe_every is not None:
+        overrides["mapping"]["keyframe_every"] = args.keyframe_every
+    if args.events:
+        net_path = os.path.join(REPO_ROOT, "pretrained", "eventnet_mapdomain.npz")
+        assert os.path.exists(net_path), (
+            f"--events needs a trained EventNet at {net_path} "
+            "(produce one with tools/event_ablation.py)"
+        )
+        overrides["event"] = {
+            "pretrained_path": net_path,
+            "rgbd_every_frame": 5, "activate_events": True, "balancer": 0.025,
+            "scale_factor": 0.15, "blur": True, "kernel_sizes": [9],
+            "unblurred_weight": 0, "kernel_weights": [1],
+            "predictor": args.predictor,
+            "guard_fallback": args.guard_fallback,
+            "prev_resize": args.prev_resize,
+        }
+        if args.hires_events:
+            # the ablation's winning H2 recipe: 0.25-scale event render with
+            # the per-pixel event weight held constant
+            overrides["event"]["scale_factor"] = 0.25
+            overrides["event"]["balancer"] = 0.025 * (0.15 / 0.25) ** 2
+    else:
+        overrides["dataset"] = "replica"  # RGB-D only
+    update_recursive(cfg, overrides)
+
+    slam = EvenNICERSLAM(cfg, nice=True, device=args.device)
+    est = slam.run()
+    out = slam.output
+
+    gt = slam.gt_c2w_list
+    plot = None if args.no_plot else os.path.join(out, "eval_ate_plot.png")
+    ate = evaluate_ate(est[:, :3, 3], gt[:, :3, 3], plot=plot)
+    rec0 = {"ate_rmse_m": ate["absolute_translational_error.rmse"],
+            "ate_mean_m": ate["absolute_translational_error.mean"]}
+    if args.events:
+        rec0["event_guard_fired"] = bool(slam.guard_fired)
+        rec0["predictor_final"] = slam.t_cfg.predictor
+    print(json.dumps(rec0), flush=True)
+
+    rec_path = os.path.join(out, "mesh", "final_mesh_eval_rec.ply")
+    assert os.path.exists(rec_path), f"missing {rec_path}"
+    from evennicer_slam_tpu_torch.data.synthetic import scene_gt_mesh
+
+    gt_mesh = scene_gt_mesh(bound, furnished=furnished)
+    gt_path = os.path.join(args.scene, "gt_mesh.ply")
+    gt_mesh.export(gt_path)
+    # unseen-region point cloud in the reference's data layout
+    # ({gt}_pc_unseen.npy next to the GT mesh): GT surface points never
+    # inside any frame's frustum; the 2D metric auto-loads it and rejects
+    # views that see unreconstructable area
+    gt_pts, seen = seen_surface(
+        gt_mesh, ((gt[i], slam.frame_reader[i].depth) for i in range(args.frames)), slam.cam)
+    unseen_pc = gt_pts[~seen]
+    np.save(gt_path.replace(".ply", "_pc_unseen.npy"), unseen_pc)
+    print(json.dumps({"gt_surface_seen_frac": float(seen.mean())}), flush=True)
+
+    m3 = calc_3d_metric(rec_path, gt_path)
+    print(json.dumps({"recon_3d": m3}), flush=True)
+    # coverage-aware completion (extension): over the OBSERVED ground truth
+    print(json.dumps({"recon_3d_seen_only": completion_seen(rec_path, gt_pts[seen])}),
+          flush=True)
+    m2 = calc_2d_metric(rec_path, gt_path, n_imgs=args.n_imgs_2d)
+    print(json.dumps({"recon_2d": m2}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

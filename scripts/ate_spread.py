@@ -3,7 +3,7 @@
 seeds, on one NVIDIA GPU.
 
     python3 scripts/ate_spread.py [--seeds 1 2 3 4] [--schedules every bench]
-        [--scale 1.0] [--bound config|pipeline] [--pipeline [--faults ...]]
+        [--scale 1.0] [--bound config|pipeline] [--pipeline [--faults ...] [--mesh]]
         [--out build/ate_spread.json]
 
 For each seed and schedule, runs ``chip_smoke.map_and_track`` (frames 0-25
@@ -23,10 +23,17 @@ over the same frames read from the scene on disk, the configuration's seed
 replaced by each seed, and, with ``--faults``, once more with each fault
 planted: ``skip`` (the steady mapping call of frame 10 skipped) and
 ``stale`` (every steady mapping call given the previous frame's pose).
+With ``--mesh`` each run also writes its final meshes (resolution 256,
+``meshing.eval_rec`` on), scores both against the analytic room as
+``chip_smoke.py`` phase 13 does (``chip_smoke.score_mesh``: accuracy,
+completion, completion ratio, and both over the observed surface, beside
+``chip_smoke.RECON_BARS``), and makes and scores both again with each of
+``chip_smoke.RECON_FAULTS`` planted (``chip_smoke.mesh_faults``).
 Prints the card's name and power limit first.
 """
 
 import argparse
+import copy
 import json
 import os
 import sys
@@ -73,6 +80,20 @@ def stale_pose(slam):
 FAULTS = {"skip": skip_call, "stale": stale_pose}
 
 
+def mesh_scores(slam, start_state):
+    """Both final meshes of a ``run_pipeline(mesh=True)`` run scored against
+    the analytic room (``chip_smoke.score_mesh``), and both meshes of each
+    planted fault (``chip_smoke.mesh_faults``)."""
+    gt_mesh = cs.scene_gt_mesh(cs.ROOM, furnished=True)
+    gt_path = os.path.join(slam.output, "gt_mesh.ply")
+    gt_mesh.export(gt_path)
+    seen_pts, _ = cs.seen_gt_points(slam, gt_mesh)
+    sound = {name: cs.score_mesh(os.path.join(slam.output, "mesh", f"{name}.ply"), gt_path,
+                                 seen_pts, bars)
+             for name, bars in cs.RECON_BARS.items()}
+    return {"sound": sound, "faults": cs.mesh_faults(slam, start_state, gt_path, seen_pts)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seeds", type=int, nargs="+", default=[1, 2, 3, 4])
@@ -82,10 +103,14 @@ def main():
     ap.add_argument("--bound", choices=["config", "pipeline"], default="config")
     ap.add_argument("--pipeline", action="store_true")
     ap.add_argument("--faults", nargs="*", default=[], choices=sorted(FAULTS))
+    ap.add_argument("--mesh", action="store_true",
+                    help="with --pipeline: mesh at the end and score both final meshes")
     ap.add_argument("--out", default="build/ate_spread.json")
     opts = ap.parse_args()
     if opts.pipeline and opts.scale != 1.0:
         ap.error("--pipeline runs at full width (its configuration's ignored edges)")
+    if opts.mesh and not opts.pipeline:
+        ap.error("--mesh scores the meshes of --pipeline runs")
     dev = torch.device("cuda")
     print(f"device: {cs.nvidia_smi_line()}", flush=True)
     cs.setup_torch(verbose=False)
@@ -106,10 +131,20 @@ def main():
     for seed in opts.seeds:
         for sched in opts.schedules:
             for fault in [None] + (opts.faults if opts.pipeline else []):
+                meshes = None
                 if opts.pipeline:
-                    ate, held, err, _ = cs.run_pipeline(
-                        frag, dev, 1 if sched == "every" else 5, seed=seed,
-                        plant=FAULTS[fault] if fault else None, label=f"{sched}_{fault}")
+                    start = {}
+
+                    def plant(slam, fault=fault, start=start):
+                        start["state"] = copy.deepcopy((slam.grids, slam.decoders))
+                        if fault:
+                            FAULTS[fault](slam)
+
+                    ate, held, err, slam = cs.run_pipeline(
+                        frag, dev, 1 if sched == "every" else 5, seed=seed, plant=plant,
+                        label=f"{sched}_{fault}", mesh=opts.mesh)
+                    if opts.mesh:
+                        meshes = mesh_scores(slam, start["state"])
                 else:
                     tcfg = mp.tcfg._replace(rgbd_every_frame=1) if sched == "every" else mp.tcfg
                     _, res = cs.map_and_track(cfg, mp, dev, frames, tcfg,
@@ -122,7 +157,7 @@ def main():
                              "bound": [[float(v) for v in r] for r in bound]
                              if not opts.pipeline else "pipeline",
                              "ate_rmse_m": ate, "held_camera_rmse_m": held,
-                             "err_mm_per_frame": err})
+                             "err_mm_per_frame": err, "meshes": meshes})
                 print(json.dumps(runs[-1]), flush=True)
     summary = {f"{s}{'' if f is None else ', ' + f}": [
         r["ate_rmse_m"] for r in runs if r["schedule"] == s and r["fault"] == f]

@@ -24,6 +24,7 @@ from evennicer_slam_tpu_torch import convert
 from evennicer_slam_tpu_torch.models import decoders as td
 from evennicer_slam_tpu_torch.models.eventnet import load_eventnet_npz
 from evennicer_slam_tpu_torch.models.grids import init_grids
+from evennicer_slam_tpu_torch.mesh.mesher import Mesher
 from evennicer_slam_tpu_torch.render.renderer import Renderer, RenderSettings
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.slam.keyframes import KeyframeStore
@@ -157,7 +158,10 @@ def test_every_port_module_imports_here():
     assert "evennicer_slam_tpu_torch.ops.fused_decode" in names
     for new in ("utils.optim", "data.synthetic", "slam.tracker", "ops.cuda_build",
                 "slam.mapper", "slam.keyframes", "data.png", "data.datasets", "data.prefetch",
-                "utils.telemetry", "utils.logger", "models.pretrained", "slam.pipeline"):
+                "utils.telemetry", "utils.logger", "models.pretrained", "slam.pipeline",
+                "mesh.trimesh_lite", "mesh.marching", "mesh.raster", "mesh.mesher", "run",
+                "tools.eval_ate", "tools.eval_recon", "tools.cull_mesh",
+                "tools.validate_synthetic"):
         assert f"evennicer_slam_tpu_torch.{new}" in names
     for name in names:
         __import__(name)
@@ -205,6 +209,8 @@ ENTRY_POINTS = {
     "Mapper": lambda: Mapper(MapperConfig(), Camera(20, 30, 18.0, 18.0, 14.5, 9.5),
                              RenderSettings(), BOUND),
     "KeyframeStore": lambda: KeyframeStore(),
+    "Mesher": lambda: Mesher(tconfig.load_config(tconfig.default_config_path(True)),
+                             Camera(20, 30, 18.0, 18.0, 14.5, 9.5), RenderSettings(), BOUND),
     "keyframe_store_from_numpy": lambda: convert.keyframe_store_from_numpy([]),
     "map_frame": lambda: map_frame(
         {}, {}, torch.zeros(1, 7), None, None, torch.eye(4)[None], torch.ones(1),

@@ -19,6 +19,8 @@ the JAX package: ``step`` equals a hand-driven ``Tracker`` / ``Mapper``
 loop with the same seeds, bit for bit.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -208,13 +210,17 @@ def test_unported_options_raise_before_the_first_frame(tmp_path, change, item):
         EvenNICERSLAM(cfg, nice=nice, device="cpu")
 
 
-def test_mesh_raises_before_the_first_frame_and_device_none_needs_cuda(tmp_path):
+def test_default_run_meshes_and_device_none_needs_cuda(tmp_path):
+    """``run()`` with its defaults meshes since the mesher is ported: it runs
+    the scene to its end and writes ``mesh/final_mesh.ply`` (no longer a
+    ``NotImplementedError`` before the first frame)."""
     cfg = tiny_cfg(str(tmp_path / "scene"), 2, events=False)
     cfg["data"]["output"] = str(tmp_path / "out")
+    cfg["meshing"]["resolution"] = 24
     slam = EvenNICERSLAM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        slam.run()
-    assert slam.idx == 0 and not slam.mapper.keyframes.indices
+    slam.run()
+    assert slam.idx == 1 and slam.mapper.keyframes.indices
+    assert os.listdir(os.path.join(cfg["data"]["output"], "mesh")) == ["final_mesh.ply"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             EvenNICERSLAM(cfg)
