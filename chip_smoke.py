@@ -58,7 +58,20 @@ bound):
     eval-rec mesh's depth L1 of a few interior views;
     then the command line, ``evennicer_slam_tpu_torch.run.main``, in process
     over frames 0-5 into ``build/cli_out``: a checkpoint, ``final_mesh.ply``
-    and a finite ATE of that checkpoint.
+    and a finite ATE of that checkpoint;
+  - iMAP (phase 14): ``configs/imap.yaml`` at its full width (one MLP
+    93 -> 256 x 4 -> 4, 32 + 12 samples with density compositing, tracking
+    5,000 pixels x 50 iterations, mapping 1,500 iterations first and
+    3 x 100 every fifth frame, meshing at 256^3 at density level 10 with
+    colours rendered along the vertex normals) through
+    ``EvenNICERSLAM(cfg, nice=False).run`` over frames 0-25 of the same
+    scene: ms per tracked frame and per mapping call, the share of a steady
+    call's device time in matrix products, peak memory, the mesh by part,
+    the ATE held below a camera held at frame 0, the mesh scored against the
+    analytic room, the along-normal colours of 2,000 vertices card vs CPU,
+    and no fused decode launched; then ``run.main([... "--imap",
+    "--end_frame", "6"])`` and ``tools/eval_ate.py --imap`` on its
+    checkpoint.
 
 Scene grids and decoders start random, from a seed; only the mapping phase
 fits them. Every phase that fails ends the run with a non-zero exit code. Without a CUDA
@@ -1028,8 +1041,8 @@ def colour_stage_skipped():
     iterations as fine-stage iterations."""
     schedule = mapper_module.stage_schedule
 
-    def no_colour(n, cfg, coarse_mapper, color_refine):
-        stages, seg = schedule(n, cfg, coarse_mapper, color_refine)
+    def no_colour(n, cfg, coarse_mapper, color_refine, nice=True):
+        stages, seg = schedule(n, cfg, coarse_mapper, color_refine, nice)
         if "color" not in stages:
             return stages, seg
         seg = dict(seg, fine=seg["fine"] + seg.pop("color"))
@@ -1604,6 +1617,249 @@ def reconstruction(frag, slam, start_state, mesh_recs):
     return [f"reconstruction: {x}" for x in failed], res, cli_launches
 
 
+# ---- 14. iMAP ------------------------------------------------------------------------
+# The second model family, as ``run.py --imap`` runs it: configs/imap.yaml at
+# its full width (680x1200; one MLP 93 -> 256 x 4 -> 4; 32 + 12 samples with
+# density compositing, occupancy false, scale 0.1; tracking 5,000 pixels x 50
+# iterations; mapping 5,000 pixels, 1,500 iterations first, then 300 every
+# fifth frame as three calls of 100 at imap_decoders_lr; meshing at 256^3, level
+# set 10 on density, colours rendered along the vertex normals) over frames
+# 0-25 of phase 12's scene on disk. Changed from imap.yaml, and nothing else:
+# the data paths (the scene's folders and camera, the output folder),
+# enable_vis false, the scene's bound (mapping.bound, marching_cubes_bound) and
+# the frame range (run(end_frame=26); the command line --end_frame 6).
+# imap.yaml has no event section, so the pipeline tracks RGB-D on every frame
+# and leaves the scene's events unread. No fused decode kernel lies on this
+# path: the kernels cover the NICE trio, and iMAP's MLP runs as plain PyTorch
+# matrix products in float32 (TF32 off).
+IMAP_FRAMES = MAP_FRAMES
+IMAP_CLI_FRAMES = 6
+IMAP_OUT = os.path.join(SCENE_DIR, "output_imap")
+IMAP_CLI_OUT = os.path.join(cuda_build.BUILD_DIR, "imap_cli_out")
+IMAP_COLOUR_VERTICES = 2000
+IMAP_PROFILE_ITERS = 20  # a steady call's iterations, traced from the fitted map
+# card against CPU, the same map and vertices: float32 on both sides in other
+# summation orders (measured 8.3e-7 at most on an NVIDIA H100 80GB HBM3 at
+# 700 W, colours in [-0.21, 1.59]); an importance sample that crosses a CDF
+# bin edge on one side only moves its vertex by more than rounding, so such
+# vertices are counted and held to a share
+IMAP_COLOUR_ATOL = 1e-4
+IMAP_COLOUR_SHARE = 5e-3
+
+
+def imap_config(frag, output):
+    """Write the scene's fragment (its data paths, camera and bound) with
+    ``enable_vis: false`` and ``output`` to ``output/config.yaml`` and load
+    it over configs/imap.yaml, as ``run.py --imap`` loads a config. Returns
+    (config, path)."""
+    shutil.rmtree(output, ignore_errors=True)
+    os.makedirs(output)
+    scene = copy.deepcopy(frag)
+    scene["data"]["output"] = output
+    scene["enable_vis"] = False
+    path = os.path.join(output, "config.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(scene, f)
+    return load_config(path, default_config_path(nice=False)), path
+
+
+def host_timed(fn, records):
+    """``fn`` with a synchronise before and after; each call appends its
+    milliseconds on the host clock to ``records``."""
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        records.append(1e3 * (time.perf_counter() - t0))
+        return out
+    return timed
+
+
+def device_kernels(fn):
+    """Run ``fn`` under ``torch.profiler`` with the CUDA device traced:
+    (device ms in all, device ms of the kernels named *gemm*, wall ms)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    total = gemm = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        total += us / 1e3
+        if "gemm" in e.key.lower():
+            gemm += us / 1e3
+    return total, gemm, wall
+
+
+def imap_colours_card_vs_cpu(slam, mesh):
+    """The along-normal colours of IMAP_COLOUR_VERTICES vertices of the
+    final mesh, rendered on the card and on the CPU from the same map."""
+    scale = slam.cfg["scale"]
+    inner = Mesh(mesh.vertices * scale, mesh.faces)
+    normals = mesher_module._vertex_normals(inner)
+    rng = np.random.default_rng(SEED)
+    sel = rng.choice(len(inner.vertices), min(IMAP_COLOUR_VERTICES, len(inner.vertices)),
+                     replace=False)
+    v, n = inner.vertices[sel], normals[sel]
+    card = slam.mesher.render_along_normals(v, n, slam.grids, slam.decoders)
+
+    def to_cpu(t):
+        return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+
+    cpu_mesher = Mesher(slam.cfg, slam.cam, slam.settings, slam.bound, device="cpu")
+    cpu = cpu_mesher.render_along_normals(v, n, {}, tree_map(to_cpu, slam.decoders))
+    diff = np.abs(card - cpu)
+    return {"vertices": int(len(sel)), "max_abs_diff": float(diff.max()),
+            "mean_abs_diff": float(diff.mean()),
+            "share_above_atol": float((diff.max(axis=1) > IMAP_COLOUR_ATOL).mean()),
+            "atol": IMAP_COLOUR_ATOL, "share_limit": IMAP_COLOUR_SHARE,
+            "colour_range": [float(card.min()), float(card.max())]}
+
+
+def imap_command_line(frag):
+    """``evennicer_slam_tpu_torch.run.main([... "--imap", "--end_frame", "6"])``
+    in process into IMAP_CLI_OUT, then ``tools/eval_ate.py --imap`` on its
+    checkpoint: a checkpoint of frame 5, a non-empty final_mesh.ply and a
+    finite ATE."""
+    import io
+
+    from evennicer_slam_tpu_torch.tools import eval_ate
+
+    _, path = imap_config(frag, IMAP_CLI_OUT)
+    t0 = time.perf_counter()
+    port_run.main([path, "--imap", "--end_frame", str(IMAP_CLI_FRAMES),
+                   "--output", IMAP_CLI_OUT])
+    run_s = time.perf_counter() - t0
+    ckpt = CheckpointLogger.latest(os.path.join(IMAP_CLI_OUT, "ckpts"))
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        eval_ate.main([path, "--output", IMAP_CLI_OUT, "--imap", "--no_plot"])
+    rmse = float("nan")
+    for line in printed.getvalue().splitlines():
+        if line.startswith("absolute_translational_error.rmse:"):
+            rmse = float(line.split(":")[1])
+    mesh_path = os.path.join(IMAP_CLI_OUT, "mesh", "final_mesh.ply")
+    faces = len(Mesh.load(mesh_path).faces) if os.path.exists(mesh_path) else 0
+    res = {"frames": IMAP_CLI_FRAMES, "run_s": run_s,
+           "checkpoint": ckpt and os.path.basename(ckpt), "eval_ate_rmse_m": rmse,
+           "final_mesh_faces": faces}
+    failed = []
+    if not (ckpt and ckpt.endswith(f"{IMAP_CLI_FRAMES - 1:05d}.npz") and math.isfinite(rmse)):
+        failed.append(f"checkpoint {ckpt}, eval_ate RMSE {rmse}")
+    if not faces > 0:
+        failed.append("no mesh/final_mesh.ply with faces")
+    return failed, res
+
+
+def imap_phase(frag, dev):
+    """Phase 14: ``EvenNICERSLAM(cfg, nice=False).run`` over frames 0-25 at
+    imap.yaml's full width with its final mesh; ms per tracked frame and per
+    mapping call (the first and the steady ones), the MLP's share of a
+    steady call's device time (IMAP_PROFILE_ITERS of its iterations,
+    traced), peak
+    device memory, the mesh's seconds by part and faces, the ATE held below
+    a camera held at frame 0, the mesh scored against the analytic room,
+    the along-normal colours card vs CPU, no fused decode launched; then the
+    command line. Returns (failures, results)."""
+    t_phase = time.perf_counter()
+    cfg, _ = imap_config(frag, IMAP_OUT)
+    scale = cfg["scale"]
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    slam = EvenNICERSLAM(cfg, nice=False, device=dev)
+    track_ms, map_ms, mesh_recs = [], [], []
+    slam.tracker.track = host_timed(slam.tracker.track, track_ms)
+    slam._map_frame = host_timed(slam._map_frame, map_ms)
+    instrument_mesher(slam, mesh_recs)
+    t0 = time.perf_counter()
+    est = slam.run(end_frame=IMAP_FRAMES, mesh=True, checkpoint=False)[:IMAP_FRAMES]
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gt = slam.gt_c2w_list[:IMAP_FRAMES].astype(np.float64) / scale
+    err = np.linalg.norm(est[:, :3, 3].astype(np.float64) / scale - gt[:, :3, 3], axis=1)
+    ate = float(np.sqrt(np.mean(err ** 2)))
+    held = float(np.sqrt(np.mean(np.sum((gt[:, :3, 3] - gt[0, :3, 3]) ** 2, axis=1))))
+
+    # a call of a steady call's kind, from the fitted map, traced
+    f = slam.frame_reader[IMAP_FRAMES - 1]
+    images = (torch.from_numpy(np.array(f.color)).to(dev),
+              torch.from_numpy(np.array(f.depth)).to(dev))
+    pose = slam.estimate_c2w_list[IMAP_FRAMES - 1].copy()
+
+    def steady_call():
+        slam.mapper.optimize_map(IMAP_PROFILE_ITERS, slam.m_cfg.lr_factor, IMAP_FRAMES - 1,
+                                 f.color, f.depth, f.event, pose.copy(),
+                                 seed=(IMAP_FRAMES - 1) * 97, grids=slam.grids,
+                                 decoders=slam.decoders, cur_images_dev=images)
+
+    dev_ms, gemm_ms, prof_wall_ms = device_kernels(steady_call)
+
+    mesh_path = os.path.join(IMAP_OUT, "mesh", "final_mesh.ply")
+    mesh = Mesh.load(mesh_path) if os.path.exists(mesh_path) else None
+    gt_path = os.path.join(IMAP_OUT, "gt_mesh.ply")
+    scene_gt_mesh(ROOM, furnished=True).export(gt_path)
+    score = calc_3d_metric(mesh_path, gt_path) if mesh is not None and len(mesh.faces) else {}
+    colours = imap_colours_card_vs_cpu(slam, mesh) if score else {}
+    n_fwd, n_bwd = launches()
+    res = {"frames": IMAP_FRAMES, "config": {
+               "hw": [slam.cam.H, slam.cam.W], "hidden": int(slam.decoders["imap"]["lin_w"][0]
+                                                         .shape[1]),
+               "blocks": len(slam.decoders["imap"]["lin_w"]),
+               "samples": [slam.settings.n_samples, slam.settings.n_importance],
+               "occupancy": slam.settings.occupancy, "scale": scale,
+               "tracking": [slam.t_cfg.pixels, slam.t_cfg.iters],
+               "mapping": [slam.m_cfg.pixels, slam.m_cfg.iters_first, slam.m_cfg.iters],
+               "meshing": [slam.mesher.resolution, slam.mesher.level_set,
+                           slam.mesher.color_mesh_extraction_method],
+               "use_events": slam.use_events},
+           "run_s": run_s, "ate_rmse_m": ate, "held_camera_rmse_m": held,
+           "err_mm_per_frame": [round(1e3 * e, 2) for e in err],
+           "track_ms_per_frame": {"n": len(track_ms), "median": float(np.median(track_ms)),
+                                  "min": float(min(track_ms)), "max": float(max(track_ms))},
+           "map_ms_first": map_ms[0], "map_ms_steady": map_ms[1:],
+           "steady_traced": {"iterations": IMAP_PROFILE_ITERS, "wall_ms": prof_wall_ms,
+                            "device_ms": dev_ms, "gemm_device_ms": gemm_ms,
+                            "gemm_share": gemm_ms / dev_ms if dev_ms else None},
+           "peak_memory_gib": peak, "meshes": mesh_recs,
+           "mesh_score": {k: score[k] for k in ("accuracy (cm)", "completion (cm)",
+                                                 "completion ratio (<5cm %)") if k in score},
+           "colours_card_vs_cpu": colours, "fused_decode_launches": [n_fwd, n_bwd],
+           "mapping_calls": slam.mapping_cnt, "keyframes": slam.mapper.keyframes.indices}
+    failed = []
+    if not ate < held:
+        failed.append(f"ATE {ate:.4f} m is not below the held camera's {held:.4f} m")
+    if mesh is None or not len(mesh.faces):
+        failed.append("no final_mesh.ply with faces")
+    if not score:
+        failed.append("final_mesh.ply was not scored")
+    elif not (colours["share_above_atol"] <= IMAP_COLOUR_SHARE
+              and math.isfinite(colours["max_abs_diff"])):
+        failed.append(f"along-normal colours card vs CPU: {colours['share_above_atol']:.4f} of "
+                      f"the vertices beyond {IMAP_COLOUR_ATOL:.4f}")
+    if (n_fwd, n_bwd) != (0, 0):
+        failed.append(f"the iMAP path launched the fused decode {n_fwd} / {n_bwd} times")
+    if not dev_ms > 0:
+        failed.append("the profiler saw no device time in the steady call")
+    f_cli, res["command_line"] = imap_command_line(frag)
+    failed += [f"command line: {x}" for x in f_cli]
+    res["command_line_launches"] = list(launches())
+    if res["command_line_launches"] != [0, 0]:
+        failed.append(f"the iMAP command line launched the fused decode "
+                      f"{res['command_line_launches']} times")
+    res["phase_s"] = time.perf_counter() - t_phase
+    say("imap: " + json.dumps(res))
+    return [f"imap: {x}" for x in failed], res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1833,6 +2089,11 @@ def main():
     failed_rec, rec_res, (launches_cli_fwd, launches_cli_bwd) = reconstruction(
         frag, every_slam, start_state, mesh_recs)
     failed += failed_rec
+    del every_slam, start_state
+
+    # ---- 14. iMAP -----------------------------------------------------------------
+    failed_imap, imap_res = imap_phase(frag, dev)
+    failed += failed_imap
     if failed:
         raise RuntimeError("; ".join(failed))
 
@@ -1854,6 +2115,7 @@ def main():
         "launches_map_and_track": launches_map_fwd,
         "launches_pipeline": launches_pipe_fwd,
         "launches_command_line": launches_cli_fwd,
+        "launches_imap": imap_res["fused_decode_launches"][0],
         "max_abs_err": max(main_res["max_abs_err"], small["max_abs_err"]),
         "ms": main_res["ms"],
         "plain_ms": main_res["plain_ms"],
@@ -1877,6 +2139,7 @@ def main():
         "launches_map_and_track": launches_map_bwd,
         "launches_pipeline": launches_pipe_bwd,
         "launches_command_line": launches_cli_bwd,
+        "launches_imap": imap_res["fused_decode_launches"][1],
         "max_abs_err": max(bwd_main["max_abs_err"], bwd_small["max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
@@ -1919,6 +2182,13 @@ def main():
                              for fault, by in rec_res["faults"].items()},
         "command_line": {k: rec_res["command_line"][k] for k in ("checkpoint", "ate_rmse_m",
                                                                  "final_mesh")}}))
+    say("imap: " + json.dumps({k: imap_res[k] for k in (
+        "ate_rmse_m", "held_camera_rmse_m", "track_ms_per_frame", "map_ms_first",
+        "map_ms_steady", "steady_traced", "peak_memory_gib", "mesh_score",
+        "colours_card_vs_cpu", "fused_decode_launches", "phase_s")}
+        | {"meshes": [{k: r[k] for k in ("total_s", "sweep_s", "march_s", "clean_s", "color_s",
+                                          "export_s", "faces")} for r in imap_res["meshes"]],
+           "command_line": imap_res["command_line"]}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

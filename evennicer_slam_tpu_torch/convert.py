@@ -53,8 +53,11 @@ def grids_from_numpy(grids: Dict[str, Any], device=None) -> Dict[str, torch.Tens
 
 
 def decoders_from_numpy(decoders: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Decoder trio (+ coarse): per MLP ``B``, ``lin_w``, ``lin_b``, ``fc_w``,
-    ``fc_b``, ``out_w``, ``out_b``; weights stay [in, out]."""
+    """Decoder trio (+ coarse), or iMAP's single MLP under ``imap``: per MLP
+    ``lin_w``, ``lin_b``, ``out_w``, ``out_b``, the grid injections
+    ``fc_w``/``fc_b`` where it has them, and its embedding's leaves (``B``,
+    ``nerf_freqs`` or ``emb_w``/``emb_b``; none for ``same``); weights stay
+    [in, out]."""
     out = tree_from_numpy(decoders, device)
     for name, m in out.items():
         for key in ("lin_w", "lin_b", "out_w", "out_b"):

@@ -10,6 +10,13 @@ volume is (``mesh/marching.py``). The visibility masks, the hull, the clean,
 the component filter and the export are host numpy over mesh-sized data and
 the keyframes' host depth and poses.
 
+Vertex colours: ``direct_point_query`` decodes each vertex's colour;
+any other ``meshing.color_mesh_extraction_method`` (iMAP's
+``render_ray_along_normal``) renders a short ray into the surface along each
+vertex's inward normal through ``Renderer.render_batch``, on the device,
+100,000 rays at a time. With ``occupancy: false`` (iMAP) the sweep reads raw
+density and ``meshing.level_set`` is a density level.
+
 Meshing reads data-dependent shapes back to the host, so it synchronises
 with the device; the pipeline calls it between frames, never inside
 ``step``.
@@ -25,22 +32,14 @@ import torch
 
 from evennicer_slam_tpu_torch.mesh.marching import marching_cubes
 from evennicer_slam_tpu_torch.mesh.trimesh_lite import ConvexHullRegion, Mesh
-from evennicer_slam_tpu_torch.render.renderer import RenderSettings, eval_points
+from evennicer_slam_tpu_torch.render.renderer import Renderer, RenderSettings, eval_points
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.slam.keyframes import _project
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
 
 HULL_PLANE_BLOCK = 128  # planes a block: bounds the [points, planes] distances
-
-
-def check_color_method(method: str) -> None:
-    """Only ``direct_point_query`` vertex colours are ported; iMAP's
-    ``render_ray_along_normal`` comes with iMAP."""
-    if method != "direct_point_query":
-        raise NotImplementedError(
-            f"meshing.color_mesh_extraction_method {method!r}: only "
-            "'direct_point_query' is ported; render_ray_along_normal comes with "
-            "iMAP (ROADMAP Queue 1 item 3)")
+NORMAL_RAY_LENGTH = 0.1  # rays start this far behind each vertex
+NORMAL_RAY_CHUNK = 100000
 
 
 def hull_inside(p: torch.Tensor, eq: torch.Tensor, tol: float) -> torch.Tensor:
@@ -77,7 +76,6 @@ class Mesher:
         device=None,
     ):
         mcfg = cfg["meshing"]
-        check_color_method(mcfg["color_mesh_extraction_method"])
         self.device = resolve_device(device)
         self.cam = cam
         self.settings = settings
@@ -87,6 +85,7 @@ class Mesher:
         self.level_set = mcfg["level_set"]
         self.clean_mesh_bound_scale = mcfg["clean_mesh_bound_scale"]
         self.remove_small_geometry_threshold = mcfg["remove_small_geometry_threshold"]
+        self.color_mesh_extraction_method = mcfg["color_mesh_extraction_method"]
         self.get_largest_components = mcfg["get_largest_components"]
         self.depth_test = mcfg["depth_test"]
         self.clean = mcfg.get("clean_mesh", True)
@@ -96,6 +95,8 @@ class Mesher:
         )
         self.verbose = cfg.get("verbose", False)
         self.last_stats: Dict[str, float] = {}
+        self._bound_np = np.array(bound, np.float32)
+        self._renderer: Optional[Renderer] = None  # built on first use
 
     # ------------------------------------------------------------------
 
@@ -120,6 +121,32 @@ class Mesher:
                     points[i:i + self.points_batch_size], np.float32)).to(self.device)
                 outs.append(eval_points(decoders, grids, p, self.bound, "color",
                                         self.settings)[:, :3])
+        return torch.cat(outs).cpu().numpy()
+
+    def render_along_normals(self, vertices: np.ndarray, normals: np.ndarray, grids,
+                             decoders) -> np.ndarray:
+        """Colours of host vertices [N, 3] by a render along their unit
+        normals [N, 3] (``_vertex_normals``): rays from ``NORMAL_RAY_LENGTH``
+        behind each vertex, the depth prior at the vertex, at stage colour,
+        ``NORMAL_RAY_CHUNK`` rays a call; every chunk is enqueued before the
+        one read-back. The render is deterministic: no jitter and no random
+        importance draws at ``rendering.perturb`` 0."""
+        if self._renderer is None:
+            cam = self.cam
+            self._renderer = Renderer(cam.H, cam.W, cam.fx, cam.fy, cam.cx, cam.cy,
+                                      self._bound_np, self.settings, device=self.device)
+        dev = self.device
+        rays_d = torch.from_numpy(normals.astype(np.float32)).to(dev)
+        rays_o = torch.from_numpy(
+            (vertices - NORMAL_RAY_LENGTH * normals).astype(np.float32)).to(dev)
+        gt_depth = torch.full((len(vertices),), NORMAL_RAY_LENGTH, dtype=torch.float32,
+                              device=dev)
+        outs = []
+        with torch.no_grad():
+            for i in range(0, rays_d.shape[0], NORMAL_RAY_CHUNK):
+                sl = slice(i, i + NORMAL_RAY_CHUNK)
+                outs.append(self._renderer.render_batch(decoders, grids, rays_o[sl], rays_d[sl],
+                                                        "color", gt_depth[sl])[2])
         return torch.cat(outs).cpu().numpy()
 
     def masked_occ_sweep(self, xyz, hull: ConvexHullRegion, grids, decoders,
@@ -299,7 +326,11 @@ class Mesher:
         t0 = time.perf_counter()
         vertex_colors = None
         if color and len(mesh.vertices):
-            rgb = self.eval_rgb(mesh.vertices.astype(np.float32), grids, decoders)
+            if self.color_mesh_extraction_method == "direct_point_query":
+                rgb = self.eval_rgb(mesh.vertices.astype(np.float32), grids, decoders)
+            else:
+                rgb = self.render_along_normals(mesh.vertices, _vertex_normals(mesh), grids,
+                                                decoders)
             vertex_colors = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
         stats["color_s"] = time.perf_counter() - t0
 
@@ -314,6 +345,19 @@ class Mesher:
         if self.verbose:
             print("Saved mesh at", mesh_out_file)
         return out
+
+
+def _vertex_normals(mesh: Mesh) -> np.ndarray:
+    """Unit vertex normals: the sum of the adjacent faces' cross products
+    (area-weighted), normalised; float64 on the host."""
+    v = mesh.vertices
+    f = mesh.faces
+    fn = np.cross(v[f[:, 1]] - v[f[:, 0]], v[f[:, 2]] - v[f[:, 0]])
+    vn = np.zeros_like(v)
+    for k in range(3):
+        np.add.at(vn, f[:, k], fn)
+    n = np.linalg.norm(vn, axis=1, keepdims=True)
+    return vn / np.maximum(n, 1e-12)
 
 
 def _bilinear_sample(img: np.ndarray, uv: np.ndarray) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""NICE (4-MLP hierarchical) decoders as plain nested dicts of tensors
-(counterpart of ``evennicer_slam_tpu/models/decoders.py``).
+"""NICE (4-MLP hierarchical) and iMAP (single-MLP) decoders as plain nested
+dicts of tensors (counterpart of ``evennicer_slam_tpu/models/decoders.py``).
 
 - parameters keep the JAX package's keys and layouts: per MLP ``B`` [3, 93],
   ``lin_w``/``lin_b`` lists, ``fc_w``/``fc_b`` lists, ``out_w``/``out_b``;
@@ -10,11 +10,14 @@
 - staged forward ('coarse' | 'middle' | 'fine' | 'color'): fine occupancy =
   fine + middle, the color stage returns the color decoder's rgb with the
   fine+middle occupancy,
-- the fine decoder's middle-feature concat is detached.
-
-Ported: the NICE family with the Fourier embedding. The other
-``pos_embedding_method`` values and the iMAP decoder raise
-``NotImplementedError`` until their slice of the port.
+- the fine decoder's middle-feature concat is detached,
+- ``pos_embedding_method`` picks the positional embedding of every MLP:
+  ``fourier`` (above), ``nerf`` (``[p, sin/cos(p f)]`` over fixed frequency
+  bands, a parameter leaf ``nerf_freqs``), ``fc_relu`` (a Linear
+  ``emb_w``/``emb_b`` with no activation) or ``same`` (``p`` itself); the
+  forward tells them apart by the leaves an MLP holds,
+- iMAP: one MLP (no grid features, width 256, 4 blocks, no skip, colour
+  head) under the key ``imap``; its forward ignores grids and stage.
 """
 
 from __future__ import annotations
@@ -37,9 +40,6 @@ EMBEDDING_SIZE = 93
 FOURIER_SCALE = 25.0
 
 POS_EMBEDDING_METHODS = ("fourier", "same", "nerf", "fc_relu")
-
-_LATER = "not ported yet: it comes with the non-Fourier embeddings and iMAP slice"
-
 
 def _bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Product of operands rounded to bf16, accumulated and returned in f32.
@@ -66,6 +66,19 @@ def _torch_linear_default(gen, shape) -> torch.Tensor:
     return _uniform(gen, shape, 1.0 / np.sqrt(shape[0]))
 
 
+def _nerf_freq_bands(name: str) -> torch.Tensor:
+    """Frequency bands of the ``nerf`` embedding: 10 log-spaced bands
+    (1 to 512) for a colour decoder, 5 linear bands (1 to 16) for the
+    others."""
+    if "color" in name:
+        multires = 10
+        bands = 2.0 ** np.linspace(0.0, multires - 1, multires)
+    else:
+        multires = 5
+        bands = np.linspace(2.0 ** 0.0, 2.0 ** (multires - 1), multires)
+    return torch.from_numpy(bands.astype(np.float32))
+
+
 def _init_mlp(
     gen: torch.Generator,
     c_dim: int,
@@ -75,24 +88,33 @@ def _init_mlp(
     color: bool,
     concat_feature: bool,
     pos_embedding_method: str = "fourier",
+    name: str = "",
 ) -> Dict[str, Any]:
     """Parameters for one MLP. The dict holds ONLY tensors; architecture
-    facts (skip positions, color head) are inferred from shapes in forward."""
-    if pos_embedding_method not in POS_EMBEDDING_METHODS:
+    facts (skip positions, color head, embedding) are inferred from its
+    leaves in forward. ``name`` picks the ``nerf`` frequency bands."""
+    relu_gain = np.sqrt(2.0)
+    params: Dict[str, Any] = {}
+    if pos_embedding_method == "fourier":
+        params["B"] = torch.randn(
+            (3, EMBEDDING_SIZE), generator=gen, device=gen.device
+        ) * FOURIER_SCALE
+        emb = EMBEDDING_SIZE
+    elif pos_embedding_method == "same":
+        emb = 3
+    elif pos_embedding_method == "nerf":
+        params["nerf_freqs"] = _nerf_freq_bands(name)
+        emb = 3 + 6 * params["nerf_freqs"].shape[0]
+    elif pos_embedding_method == "fc_relu":
+        # a plain Linear embedder: relu-gain init, no activation in forward
+        params["emb_w"] = _xavier_uniform(gen, (3, EMBEDDING_SIZE), relu_gain)
+        params["emb_b"] = torch.zeros((EMBEDDING_SIZE,))
+        emb = EMBEDDING_SIZE
+    else:
         raise ValueError(
             f"unknown pos_embedding_method {pos_embedding_method!r}; "
             f"expected one of {POS_EMBEDDING_METHODS}"
         )
-    if pos_embedding_method != "fourier":
-        raise NotImplementedError(
-            f"pos_embedding_method {pos_embedding_method!r} is {_LATER}"
-        )
-    relu_gain = np.sqrt(2.0)
-    params: Dict[str, Any] = {}
-    params["B"] = torch.randn(
-        (3, EMBEDDING_SIZE), generator=gen, device=gen.device
-    ) * FOURIER_SCALE
-    emb = EMBEDDING_SIZE
 
     feat_dim = c_dim * (2 if concat_feature else 1)
     lin_w, lin_b = [], []
@@ -159,19 +181,28 @@ def init_nice_decoders(
     pe = pos_embedding_method
     dec = {
         "middle": _init_mlp(generator, c_dim, hidden_size, 5, (2,), False, False,
-                            pos_embedding_method=pe),
+                            pos_embedding_method=pe, name="middle"),
         "fine": _init_mlp(generator, c_dim, hidden_size, 5, (2,), False, True,
-                          pos_embedding_method=pe),
+                          pos_embedding_method=pe, name="fine"),
         "color": _init_mlp(generator, c_dim, hidden_size, 5, (2,), True, False,
-                           pos_embedding_method=pe),
+                           pos_embedding_method=pe, name="color"),
     }
     if coarse:
         dec["coarse"] = _init_mlp_no_xyz(generator, c_dim, hidden_size, 5, (2,), False)
     return _tree_to(dec, device)
 
 
-def init_imap_decoder(generator, pos_embedding_method: str = "fourier", device=None):
-    raise NotImplementedError(f"the iMAP decoder is {_LATER}")
+def init_imap_decoder(
+    generator: torch.Generator,
+    pos_embedding_method: str = "fourier",
+    device=None,
+) -> Dict[str, Any]:
+    """iMAP: one MLP with no grid features, width 256, 4 blocks, no skip,
+    colour head, drawn from ``generator`` and placed on ``device``."""
+    device = resolve_device(device)
+    mlp = _init_mlp(generator, 0, 256, 4, (), True, False,
+                    pos_embedding_method=pos_embedding_method, name="imap")
+    return _tree_to({"imap": mlp}, device)
 
 
 # ---------------------------------------------------------------------------
@@ -189,18 +220,27 @@ def _mlp_forward(
     Skip positions and the color head are inferred from weight shapes (a
     layer expecting ``hidden + emb`` inputs marks a preceding skip).
     ``mm_dtype=torch.bfloat16`` rounds the operands of every MLP product to
-    bf16 and accumulates in f32; the embedding product and the sine stay in
-    f32, because the sine is evaluated at arguments of O(+-100), where bf16
-    would randomize the phase."""
-    if "B" not in params:
-        raise NotImplementedError(f"a non-Fourier embedding is {_LATER}")
+    bf16 and accumulates in f32; the embedding (its product and its sines)
+    stays in f32, because the Fourier sine is evaluated at arguments of
+    O(+-100), where bf16 would randomize the phase."""
     if mm_dtype is None:
         mm = torch.matmul
     elif mm_dtype == torch.bfloat16:
         mm = _bf16_matmul
     else:
         raise ValueError(f"mm_dtype must be None or torch.bfloat16, got {mm_dtype}")
-    emb = torch.sin(p @ params["B"])
+    if "B" in params:  # fourier
+        emb = torch.sin(p @ params["B"])
+    elif "nerf_freqs" in params:
+        # [p, sin(p f1), cos(p f1), sin(p f2), ...], each band's sines and
+        # cosines over x, y, z in turn
+        xf = p[..., None, :] * params["nerf_freqs"][:, None]  # [N, F, 3]
+        sc = torch.stack([torch.sin(xf), torch.cos(xf)], dim=-2)  # [N, F, 2, 3]
+        emb = torch.cat([p, sc.reshape(p.shape[0], -1)], dim=-1)
+    elif "emb_w" in params:  # fc_relu: a Linear, no activation
+        emb = p @ params["emb_w"] + params["emb_b"]
+    else:  # same
+        emb = p
     emb_dim = emb.shape[-1]
     h = emb
     n_blocks = len(params["lin_w"])
@@ -349,6 +389,9 @@ def nice_forward_packed(
         grids = pack_grids_for_tracking(grids)
     p_nor = normalize_3d_coordinate(p, bound)
 
+    # decided by the configuration, never by a failure: a trio the kernels
+    # do not cover (a non-Fourier embedding, another width) takes the plain
+    # ops below on every device, as the JAX package's does
     if fused_decode.supports(decoders):
         rows_m, frac_m = packed_rows_and_frac(grids["middle_packed"], p_nor)
         rows_f, frac_f = packed_rows_and_frac(grids["fc_packed"], p_nor)
@@ -371,7 +414,8 @@ def nice_forward_packed(
 
 
 def imap_forward(decoders: Dict[str, Any], p: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(f"the iMAP forward is {_LATER}")
+    """iMAP single-MLP forward -> raw [N, 4] (rgb, density)."""
+    return _mlp_forward(decoders["imap"], p, None)
 
 
 def decoder_forward(

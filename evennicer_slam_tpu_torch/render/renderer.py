@@ -11,7 +11,8 @@
   the fused decode (tracking) wrt the pose only, its rows and weights being
   frozen.
 
-``regulation_sigma`` (iMAP*) is not ported yet.
+``regulation_sigma`` is iMAP's free-space term: densities sampled in front
+of the surface.
 """
 
 from __future__ import annotations
@@ -173,6 +174,34 @@ def render_rays(
         )
 
     return depth, depth_var, color
+
+
+def regulation_sigma(
+    decoders: Dict[str, Any],
+    grids: Optional[Dict[str, torch.Tensor]],
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    gt_depth: torch.Tensor,
+    bound: torch.Tensor,
+    settings: RenderSettings,
+    generator: Optional[torch.Generator] = None,
+    stage: str = "color",
+    t_rand: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """iMAP's free-space regulation: the raw density [N * n_samples] at
+    ``settings.n_samples`` stratified depths in [0, 0.85 d] of each ray,
+    always jittered inside their bins. The jitter [N, n_samples] is drawn
+    from ``generator`` unless ``t_rand`` hands it in."""
+    near = torch.zeros_like(gt_depth)[..., None]
+    far = (gt_depth * 0.85)[..., None]
+    if t_rand is None:
+        gdev = generator.device if generator is not None else gt_depth.device
+        t_rand = torch.rand((gt_depth.shape[0], settings.n_samples), generator=generator,
+                            device=gdev).to(gt_depth.device)
+    z_vals = stratified_z_vals(near, far, settings.n_samples, perturb=1.0, t_rand=t_rand)
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    raw = eval_points(decoders, grids, pts.reshape(-1, 3), bound, stage, settings)
+    return raw[:, -1]
 
 
 class Renderer:

@@ -2,18 +2,19 @@
 
     python -m evennicer_slam_tpu_torch.run configs/Replica/room0.yaml \
         [--input_folder F] [--event_folder E] [--output O] [--resume] \
-        [--end_frame N] [--device cuda|cpu]
+        [--end_frame N] [--device cuda|cpu] [--nice | --imap]
 
 Runs ``EvenNICERSLAM.run`` over the sequence: checkpoints every
 ``mapping.ckpt_freq`` frames, a mesh every ``mapping.mesh_freq`` frames,
 then ``mesh/final_mesh.ply`` (and ``mesh/final_mesh_eval_rec.ply`` with
 ``meshing.eval_rec``). ``--resume`` restarts from the latest checkpoint in
 the output directory. The run is on the CUDA device unless ``--device cpu``
-asks for the CPU.
+asks for the CPU. ``--imap`` runs iMAP, its configuration over
+``configs/imap.yaml`` (``--nice``, the default, over ``configs/nice_slam.yaml``).
 
-Not ported yet, and refused before the first frame: ``--imap`` (ROADMAP
-Queue 1 item 3), ``--viz_port`` and a configuration with ``enable_vis: true``
-(the visualiser, item 4; set ``enable_vis: false``).
+Not ported yet, and refused before the first frame: ``--viz_port`` and a
+configuration with ``enable_vis: true`` (the visualiser, ROADMAP Queue 1
+item 4; set ``enable_vis: false``).
 """
 
 from __future__ import annotations
@@ -44,16 +45,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     nice_parser = parser.add_mutually_exclusive_group(required=False)
     nice_parser.add_argument("--nice", dest="nice", action="store_true")
     nice_parser.add_argument("--imap", dest="nice", action="store_false",
-                             help="iMAP (not ported: ROADMAP Queue 1 item 3)")
+                             help="iMAP: one MLP, no grids (default config imap.yaml)")
     parser.set_defaults(nice=True)
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if not args.nice:
-        raise NotImplementedError("--imap: iMAP is not ported (ROADMAP Queue 1 item 3, "
-                                  "the non-Fourier embeddings and iMAP)")
     if args.viz_port is not None:
         raise NotImplementedError("--viz_port: the viewer is not ported (ROADMAP Queue 1 "
                                   "item 4, host side, the other datasets, and tools)")

@@ -28,17 +28,25 @@ Semantics:
   two optimisers,
 - ``use_events``: a second Adam step after each main step on the event loss
   of the current frame's 0.15-scale render; its optimiser leaves out the
-  colour and coarse grids.
+  colour and coarse grids,
+- iMAP (``settings.nice`` False): no grids; one colour stage of every
+  iteration, the whole MLP at ``imap_decoders_lr`` scaled by
+  ``0.8 ** (it // 200)`` (a StepLR over the call's global iteration), the
+  colour loss on every ray and no inside mask, no frustum masks and no
+  coarse term,
+- a non-occupancy render (``occupancy: false``, iMAP's) adds the free-space
+  regulation ``0.0005 * sum |sigma|`` of ``render/renderer.py``'s
+  ``regulation_sigma`` on the same rays.
 
 Randomness: the pixel draws of a call are made once per stage, one
 ``randint`` of shape [iterations, K, pixels] from a generator seeded by the
-call's seed and the stage; a call split into chunks slices them, so it is
-bitwise equal to the unchunked call. Keyframe selection draws from numpy
-generators exactly as the JAX package does.
+call's seed and the stage, and so are the regulation's depth jitters, one
+``rand`` of shape [iterations, rays, n_samples] from a stream of their own;
+a call split into chunks slices them, so it is bitwise equal to the
+unchunked call. Keyframe selection draws from numpy generators exactly as
+the JAX package does.
 
-Left out: iMAP (``settings.nice`` False) and the free-space regulation of a
-non-occupancy render raise ``NotImplementedError``; the device-mesh argument
-``dp`` has no counterpart.
+Left out: the device-mesh argument ``dp`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -61,7 +69,11 @@ from evennicer_slam_tpu_torch.core.rays import get_rays_rescale
 from evennicer_slam_tpu_torch.models.eventnet import inference_event
 from evennicer_slam_tpu_torch.ops.gaussian_blur import gaussian_blur
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest
-from evennicer_slam_tpu_torch.render.renderer import RenderSettings, render_rays
+from evennicer_slam_tpu_torch.render.renderer import (
+    RenderSettings,
+    regulation_sigma,
+    render_rays,
+)
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.slam.keyframes import (
     KeyframeStore,
@@ -232,25 +244,30 @@ def _sample_window_rays(pixel_idx: torch.Tensor, c2ws: torch.Tensor, colors: tor
 
 def _map_loss(params, fixed_c2w, colors, depths, bound, pixel_idx, cfg: MapperConfig,
               cam: Camera, settings: RenderSettings, stage: str, ba: bool,
-              coarse_mapper: bool) -> torch.Tensor:
+              coarse_mapper: bool, reg_draws: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The mapping loss of one window for the drawn pixels ``pixel_idx``
-    [K, P]; ``params`` = (grids, decoders, cam_tensors)."""
-    if not settings.occupancy:
-        raise NotImplementedError(
-            "the free-space regulation of a non-occupancy render is not ported yet: "
-            "it comes with the iMAP slice")
+    [K, P]; ``params`` = (grids, decoders, cam_tensors). A non-occupancy
+    render adds the free-space regulation, its depth jitter ``reg_draws``
+    [K * P, n_samples]."""
     grids, decoders, cam_tensors = params
     c2ws = _window_c2w(cam_tensors, fixed_c2w, ba)
     rays_o, rays_d, b_depth, b_color = _sample_window_rays(pixel_idx, c2ws, colors, depths, cam)
-    inside = inside_bound_mask(rays_o.detach(), rays_d.detach(), b_depth, bound)
+    if settings.nice:
+        inside = inside_bound_mask(rays_o.detach(), rays_d.detach(), b_depth, bound)
+    else:
+        inside = torch.ones_like(b_depth, dtype=torch.bool)
     depth, _, color = render_rays(
         decoders, grids, rays_o, rays_d, bound, stage, settings,
         gt_depth=None if coarse_mapper else b_depth,
     )
     depth_mask = (b_depth > 0) & inside
     loss = torch.sum(torch.abs(b_depth - depth) * depth_mask)
-    if stage == "color":
+    if (not settings.nice) or stage == "color":
         loss = loss + cfg.w_color_loss * torch.sum(torch.abs(b_color - color) * inside[:, None])
+    if not settings.occupancy:
+        sigma = regulation_sigma(decoders, grids, rays_o, rays_d, b_depth, bound, settings,
+                                 stage=stage, t_rand=reg_draws)
+        loss = loss + 0.0005 * torch.sum(torch.abs(sigma))
     return loss
 
 
@@ -260,13 +277,21 @@ def _f32_product(a: float, b: float) -> float:
     return float(np.float32(a) * np.float32(b))
 
 
-def _decoder_lr_tree(decoders, lrs: Dict[str, Any], cfg: MapperConfig):
-    """Per-leaf rates of the NICE decoders: the fine decoder unless
+def imap_lr_factor(it: int) -> float:
+    """iMAP's StepLR (step 200, gamma 0.8) at the call's global iteration
+    ``it``, in float32 as the JAX package computes it."""
+    return float(np.float32(0.8) ** np.float32(it // 200))
+
+
+def _decoder_lr_tree(decoders, lrs: Dict[str, Any], cfg: MapperConfig, nice: bool = True):
+    """Per-leaf rates of the decoders. NICE: the fine decoder unless
     ``fix_fine``, the colour decoder unless ``fix_color``; the middle and
-    coarse decoders are never optimised."""
+    coarse decoders are never optimised. iMAP: the whole MLP."""
     out = {}
     for name in decoders:
-        if name == "fine":
+        if not nice:
+            lr = lrs["decoders"]
+        elif name == "fine":
             lr = 0.0 if cfg.fix_fine else lrs["decoders"]
         elif name == "color":
             lr = 0.0 if cfg.fix_color else lrs["decoders"]
@@ -379,6 +404,8 @@ def map_frame(
     fuse_coarse: bool = False,
     init_adam: bool = False,
     device=None,
+    seg_starts: Optional[Dict[str, int]] = None,
+    reg_draws: Optional[Dict[str, torch.Tensor]] = None,
 ):
     """One mapping call (or one chunk of it): the stages in sequence, each
     for ``seg_lens[stage]`` iterations, nothing read back to the host.
@@ -386,16 +413,18 @@ def map_frame(
     ``pixel_draws[stage]`` [seg_lens[stage], K, P] holds the flat pixel
     indices of each of the stage's iterations in this chunk, one row of P per
     window frame (``pixel_draws_c`` the same for the fused coarse term's
-    window). Adam state is threaded through: ``init_adam`` builds it anew
-    (the first chunk of a call) and ignores ``adam`` / ``adam_ev``.
+    window). ``reg_draws[stage]`` [seg_lens[stage], K * P, n_samples] holds
+    the regulation's depth jitter, needed by a non-occupancy render (iMAP's;
+    a fused coarse term, NICE's only, draws its own from the global
+    generator). ``seg_starts[stage]`` is the stage's first iteration in this
+    chunk (0 when not given), which iMAP's StepLR counts from. Adam state is threaded through: ``init_adam`` builds
+    it anew (the first chunk of a call) and ignores ``adam`` / ``adam_ev``.
 
     Returns (grids, decoders, cam_tensors, adam, adam_ev, last_loss,
     last_event_loss); the losses are tensors of the last iteration."""
     device = resolve_device(device)
     require_on(device, cam_tensors, fixed_c2w, colors, bound)
-    if not settings.nice:
-        raise NotImplementedError("iMAP mapping is not ported yet: it comes with the "
-                                  "iMAP slice")
+    nice = settings.nice
     params = (grids, decoders, cam_tensors)
     if init_adam:
         adam = adam_init(params, per_leaf_t=True)
@@ -421,6 +450,8 @@ def map_frame(
         g_act = {lvl: grid_on.get(lvl, False) for lvl in grids}
 
         def dec_on(name: str) -> bool:
+            if not nice:
+                return True  # iMAP: the whole MLP is the parameter list
             if name == "fine":
                 return (not cfg.fix_fine) and (event_update or stage in ("fine", "color"))
             if name == "color":
@@ -431,8 +462,15 @@ def map_frame(
                  for name in decoders}
         return (g_act, d_act, ba)
 
-    def lr_trees(stage: str, event_update: bool):
-        lrs_host = dict(cfg.stage_lr_dict(stage))
+    def lr_trees(stage: str, event_update: bool, it: Optional[int] = None):
+        """Per-leaf rates; iMAP's StepLR applies to the main step at
+        iteration ``it`` (the event step keeps the unscaled rate, as in the
+        JAX package)."""
+        if nice:
+            lrs_host = dict(cfg.stage_lr_dict(stage))
+        else:
+            lrs_host = {"decoders": cfg.imap_decoders_lr, "coarse": 0.0, "middle": 0.0,
+                        "fine": 0.0, "color": 0.0}
         if fuse_coarse:
             # the coarse grid trains at the coarse stage's rate throughout
             lrs_host["coarse"] = cfg.stage_lr_dict("coarse")["coarse"]
@@ -442,9 +480,11 @@ def map_frame(
             g_lrs["color"] = 0.0
             g_lrs["coarse"] = 0.0
         dec_lr = _f32_product(lrs_host["decoders"], lr_factor)
+        if not nice and it is not None:
+            dec_lr = _f32_product(dec_lr, imap_lr_factor(it))
         cam_lr = cfg.BA_cam_lr if (ba and stage == "color") else 0.0
         return ({lvl: g_lrs[lvl] for lvl in grids},
-                _decoder_lr_tree(decoders, {"decoders": dec_lr}, cfg_now),
+                _decoder_lr_tree(decoders, {"decoders": dec_lr}, cfg_now, nice),
                 opt_cam_mask[:, None] * cam_lr)
 
     last_loss = torch.zeros((), device=device)
@@ -460,16 +500,21 @@ def map_frame(
             lrs_ev = lr_trees(stage, event_update=True)
         draws = pixel_draws[stage]
         draws_c = pixel_draws_c[stage] if fuse_coarse else None
+        reg = reg_draws[stage] if reg_draws is not None else None
+        start = seg_starts[stage] if seg_starts is not None else 0
         for i in range(n):
             def loss_fn(p, i=i):
                 loss = _map_loss(p, fixed_c2w, colors, depths, bound, draws[i], cfg_now, cam,
-                                 settings, stage, ba, coarse_mapper)
+                                 settings, stage, ba, coarse_mapper,
+                                 None if reg is None else reg[i])
                 if fuse_coarse:
                     loss = loss + _map_loss(p, fixed_c2w_c, colors_c, depths_c, bound,
                                             draws_c[i], cfg_now, cam, settings, "coarse",
                                             False, True)
                 return loss
 
+            if not nice:
+                lrs_main = lr_trees(stage, event_update=False, it=start + i)
             last_loss, grads = _value_and_grad(loss_fn, params, act_main)
             with torch.no_grad():
                 if use_frustum:
@@ -497,11 +542,12 @@ def map_frame(
 # ---------------------------------------------------------------------------
 
 def stage_schedule(num_joint_iters: int, cfg: MapperConfig, coarse_mapper: bool,
-                   color_refine: bool) -> Tuple[Tuple[str, ...], Dict[str, int]]:
+                   color_refine: bool, nice: bool = True
+                   ) -> Tuple[Tuple[str, ...], Dict[str, int]]:
     """The stages of a call and their iteration counts."""
     if coarse_mapper:
         return ("coarse",), {"coarse": num_joint_iters}
-    if color_refine:
+    if color_refine or not nice:
         return ("color",), {"color": num_joint_iters}
     m_end = int(num_joint_iters * cfg.middle_iter_ratio)
     f_end = int(num_joint_iters * cfg.fine_iter_ratio)
@@ -529,9 +575,6 @@ class Mapper:
         device=None,
     ):
         self.device = resolve_device(device)
-        if not settings.nice:
-            raise NotImplementedError("iMAP mapping is not ported yet: it comes with the "
-                                      "iMAP slice")
         self.cfg = cfg
         self.cam = cam
         self.settings = settings
@@ -578,6 +621,15 @@ class Mapper:
         gen.manual_seed(((seed * 4 + STAGE_IDS[stage]) * 2 + term) % (2 ** 63))
         return torch.randint(0, self.cam.H * self.cam.W, (n, K, pix), generator=gen,
                              device=self.device)
+
+    def _draw_regulation(self, seed: int, stage: str, n: int, rays: int) -> torch.Tensor:
+        """The free-space regulation's depth jitter [n, rays, n_samples] of
+        every iteration of ``stage`` in a call (a non-occupancy render)."""
+        gen = torch.Generator(device=self.device)
+        # 2**62 apart from the pixel streams' seeds of any call
+        gen.manual_seed((seed * 4 + STAGE_IDS[stage] + 2 ** 62) % (2 ** 63))
+        return torch.rand((n, rays, self.settings.n_samples), generator=gen,
+                          device=self.device)
 
     def _selection_draws(self, seed: int, n_kf: int):
         """(pixel indices [100], priorities [n_kf - 1]) of the device-side
@@ -748,7 +800,9 @@ class Mapper:
             self.selected_keyframes[idx] = info
 
         # the fused coarse term: its own globally random window
-        fuse_coarse = bool(self.fuse_coarse and not self.coarse_mapper and not color_refine)
+        nice = self.settings.nice
+        fuse_coarse = bool(self.fuse_coarse and nice and not self.coarse_mapper
+                           and not color_refine)
         colors_c = depths_c = fixed_c2w_c = None
         pix_per_img_c = 0
         if fuse_coarse:
@@ -773,7 +827,8 @@ class Mapper:
             opt_mask = to_device(
                 np.array([0.0 if f == oldest else 1.0 for f in window], np.float32), dev)
 
-        stages, seg = stage_schedule(num_joint_iters, cfg, self.coarse_mapper, color_refine)
+        stages, seg = stage_schedule(num_joint_iters, cfg, self.coarse_mapper, color_refine,
+                                     nice)
         spans = {}
         acc = 0
         for s in stages:
@@ -782,7 +837,7 @@ class Mapper:
         total_iters = acc
 
         # frustum masks
-        use_frustum = cfg.frustum_feature_selection and not color_refine
+        use_frustum = cfg.frustum_feature_selection and nice and not color_refine
         grid_masks: Dict[str, torch.Tensor] = {}
         if grids is not None:
             masked = [lvl for lvl in grids if use_frustum and lvl != "coarse"]
@@ -818,6 +873,9 @@ class Mapper:
         draws = {s: self._draw_pixels(seed, s, 0, seg[s], K, pix_per_img) for s in stages}
         draws_c = ({s: self._draw_pixels(seed, s, 1, seg[s], len(c_frames), pix_per_img_c)
                     for s in stages} if fuse_coarse else None)
+        reg = None
+        if not self.settings.occupancy:
+            reg = {s: self._draw_regulation(seed, s, seg[s], K * pix_per_img) for s in stages}
 
         new_grids, new_decoders, new_cams = grids, decoders, cam_tensors
         adam = adam_ev = None
@@ -844,6 +902,7 @@ class Mapper:
                 colors_c, depths_c, fixed_c2w_c, chunk(draws_c), cfg, self.cam,
                 self.settings, ba, self.coarse_mapper, use_frustum, stages, use_events,
                 color_refine, fuse_coarse, init_adam=(ci == 0), device=dev,
+                seg_starts=seg_starts, reg_draws=chunk(reg),
             )
         # a device scalar: reading it here would wait for the whole call
         self.last_loss = loss

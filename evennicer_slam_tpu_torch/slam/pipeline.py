@@ -19,11 +19,15 @@ work and does not wait for the device.
 (``mesh/mesher.py``): between frames, since meshing reads data-dependent
 shapes back to the host.
 
+``nice=False`` runs iMAP: no grids, the single MLP of ``get_model``, no
+pretrained decoders and no coarse term; the tracker decodes through the
+plain ops (the fused kernels cover the NICE trio only); a steady mapping
+call is three calls of ``iters // 3`` iterations, and the sequence's end
+has no colour refinement.
+
 Not ported yet, and raising ``NotImplementedError`` before the first frame:
 ``sync_method: loose|free``, ``parallel.map_devices`` and data parallelism
-(ROADMAP Queue 1 item 5), iMAP (``nice=False``, and its
-``render_ray_along_normal`` mesh colours, item 3) and the visualiser
-(``enable_vis``, item 4).
+(ROADMAP Queue 1 item 5) and the visualiser (``enable_vis``, item 4).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 from evennicer_slam_tpu_torch.config import get_model
 from evennicer_slam_tpu_torch.data.datasets import get_dataset
 from evennicer_slam_tpu_torch.data.prefetch import PrefetchingReader
-from evennicer_slam_tpu_torch.mesh.mesher import Mesher, check_color_method
+from evennicer_slam_tpu_torch.mesh.mesher import Mesher
 from evennicer_slam_tpu_torch.models.eventnet import (
     init_eventnet,
     load_eventnet_npz,
@@ -69,7 +73,7 @@ def load_scene_bound(cfg) -> np.ndarray:
     return bound.astype(np.float32)
 
 
-def check_supported(cfg: Dict[str, Any], nice: bool) -> None:
+def check_supported(cfg: Dict[str, Any]) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item that ports it,
     for a configuration this port cannot run yet."""
     sync = cfg.get("sync_method", "strict")
@@ -82,10 +86,6 @@ def check_supported(cfg: Dict[str, Any], nice: bool) -> None:
     dp = par.get("data_parallel", "auto")
     if dp != "auto" and int(dp) > 1:
         raise NotImplementedError(f"parallel.data_parallel {dp}: {ROADMAP_CONCURRENCY}")
-    if not nice:
-        raise NotImplementedError("nice=False (iMAP): ROADMAP Queue 1 item 3 "
-                                  "(the non-Fourier embeddings and iMAP)")
-    check_color_method(cfg["meshing"]["color_mesh_extraction_method"])
     if cfg.get("enable_vis", True):
         raise NotImplementedError(
             "enable_vis: the visualiser is not ported (ROADMAP Queue 1 item 4); "
@@ -103,9 +103,10 @@ class EvenNICERSLAM:
     the CUDA device."""
 
     def __init__(self, cfg: Dict[str, Any], args=None, nice: bool = True, device=None):
-        check_supported(cfg, nice)
+        check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.nice = nice
         self.coarse = cfg["coarse"] and nice
         self.verbose = cfg.get("verbose", False)
 
@@ -122,15 +123,20 @@ class EvenNICERSLAM:
         g_grid, g_dec, g_ev = (torch.Generator().manual_seed(s)
                                for s in _seeds(int(cfg.get("seed", 42)), 3))
         dev = self.device
-        self.grids = init_grids(g_grid, self.bound, cfg["grid_len"], cfg["model"]["c_dim"],
-                                self.coarse, cfg["model"]["coarse_bound_enlarge"], device=dev)
-        self.decoders = get_model(dict(cfg, coarse=self.coarse), nice=True, generator=g_dec,
-                                  device=dev)
-        pre = cfg.get("pretrained_decoders", {})
-        mf = pre.get("middle_fine")
-        if mf and os.path.exists(mf):
-            self.decoders = load_pretrained_decoders(
-                self.decoders, mf, pre.get("coarse") if self.coarse else None)
+        if nice:
+            self.grids = init_grids(g_grid, self.bound, cfg["grid_len"], cfg["model"]["c_dim"],
+                                    self.coarse, cfg["model"]["coarse_bound_enlarge"],
+                                    device=dev)
+            self.decoders = get_model(dict(cfg, coarse=self.coarse), nice=True,
+                                      generator=g_dec, device=dev)
+            pre = cfg.get("pretrained_decoders", {})
+            mf = pre.get("middle_fine")
+            if mf and os.path.exists(mf):
+                self.decoders = load_pretrained_decoders(
+                    self.decoders, mf, pre.get("coarse") if self.coarse else None)
+        else:
+            self.grids = {}
+            self.decoders = get_model(cfg, nice=False, generator=g_dec, device=dev)
 
         self.frame_reader = PrefetchingReader(get_dataset(cfg, args, cfg["scale"]), device=dev)
         self.n_img = len(self.frame_reader)
@@ -154,11 +160,11 @@ class EvenNICERSLAM:
         t_cfg = TrackerConfig.from_cfg(cfg, self.use_events)
         m_cfg = MapperConfig.from_cfg(cfg, use_events=cfg.get("mapping", {}).get("use_events",
                                                                                  False))
-        # tracking never trains the decoders, so on the card it decodes
-        # through the fused kernels; on the CPU the JAX package turns its
-        # fused decode off, and so does this port, so that CPU runs of both
-        # compare like with like
-        fused = dev.type == "cuda"
+        # tracking never trains the decoders, so on the card it decodes the
+        # NICE trio through the fused kernels; on the CPU the JAX package
+        # turns its fused decode off, and so does this port, so that CPU runs
+        # of both compare like with like
+        fused = dev.type == "cuda" and nice
         self.tracker = Tracker(t_cfg, self.cam, self.settings._replace(fused_decode=fused),
                                self.bound, self.eventnet, device=dev)
         self.mapper = Mapper(m_cfg, self.cam, self.settings, self.bound,
@@ -209,9 +215,9 @@ class EvenNICERSLAM:
     @property
     def mesher(self) -> Mesher:
         """The mesher, built on first use from the pipeline's own render
-        settings: the sweep and the vertex colours decode through the f32
-        ``nice_forward``, as the mapper's decode does (only the tracker's
-        settings turn the fused kernels on)."""
+        settings: the sweep and the vertex colours decode in f32 through the
+        plain ops, as the mapper's decode does (only the tracker's settings
+        turn the fused kernels on)."""
         if self._mesher is None:
             self._mesher = Mesher(self.cfg, self.cam, self.settings, self.bound,
                                   device=self.device)
@@ -395,8 +401,10 @@ class EvenNICERSLAM:
             outer, num_iters, lr_factor = 1, m.iters_first, m.lr_first_factor
         elif color_refine:
             outer, num_iters, lr_factor = 5, m.iters, m.lr_factor
-        else:
+        elif self.nice:
             outer, num_iters, lr_factor = 1, m.iters, m.lr_factor
+        else:
+            outer, num_iters, lr_factor = 3, m.iters // 3, m.lr_factor
 
         mapper = self.mapper
         mapper.update_ba_state()
@@ -477,7 +485,7 @@ class EvenNICERSLAM:
                 self._map_frame(idx, frame, init=False, images_dev=(gt_color, gt_depth))
             mapped = True
         if idx == self.n_img - 1:
-            if self.m_cfg.color_refine:
+            if self.m_cfg.color_refine and self.nice:
                 with self.timers.phase("map"):
                     self._map_frame(idx, frame, init=False, color_refine=True,
                                     images_dev=(gt_color, gt_depth))

@@ -1,7 +1,8 @@
 """The port's command line (``evennicer_slam_tpu_torch/run.py``) on the CPU:
 a tiny scene (36x48, a handful of frames) from a config file to checkpoints,
 the final meshes and the trajectory error of the checkpoint; ``--resume``;
-the options that are not ported yet, refused before any frame."""
+``--imap`` and the along-normal mesh colours; the options that are not
+ported yet, refused before any frame."""
 
 import os
 import subprocess
@@ -82,19 +83,51 @@ def test_cli_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,changes,match", [
-    (["--imap"], {}, "ROADMAP Queue 1 item 3"),
     (["--viz_port", "8123"], {}, "ROADMAP Queue 1 item 4"),
     ([], {"enable_vis": True}, "enable_vis: false"),
-    ([], {"meshing": {"resolution": 24,
-                      "color_mesh_extraction_method": "render_ray_along_normal"}},
-     "ROADMAP Queue 1 item 3"),
-], ids=["imap", "viz_port", "enable_vis", "render_ray_along_normal"])
+], ids=["viz_port", "enable_vis"])
 def test_unported_options_raise_before_any_frame(tmp_path, flags, changes, match):
     cfg = write_config(tmp_path, 3, **changes)
     out = str(tmp_path / "out")
     with pytest.raises(NotImplementedError, match=match):
         port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
     assert not os.path.exists(out)  # nothing run, nothing written
+
+
+@pytest.mark.parametrize("flags,changes", [
+    (["--imap"], {"scale": 1.0}),
+    ([], {"meshing": {"resolution": 24,
+                      "color_mesh_extraction_method": "render_ray_along_normal"}}),
+], ids=["imap", "render_ray_along_normal"])
+def test_options_once_refused_run_to_their_end(tmp_path, capsys, flags, changes):
+    """``--imap`` and the along-normal mesh colours: a checkpoint of the last
+    frame, a coloured ``final_mesh.ply``, and ``eval_ate`` reads the
+    checkpoint in the same mode. The iMAP config names no parent, so
+    ``configs/imap.yaml`` is its base (``--imap``'s default), at scale 1 as
+    ``tests/test_slam.py::test_imap_mode`` has it."""
+    from evennicer_slam_tpu_torch.tools import eval_ate
+
+    cfg = write_config(tmp_path, 3, **changes)
+    if "--imap" in flags:
+        with open(cfg) as f:
+            raw = yaml.safe_load(f)
+        del raw["inherit_from"]
+        with open(cfg, "w") as f:
+            yaml.safe_dump(raw, f)
+    out = str(tmp_path / "out")
+    est = port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
+    assert est.shape == (3, 4, 4) and np.isfinite(est).all()
+    assert sorted(f for f in os.listdir(os.path.join(out, "ckpts")) if f.endswith(".npz")) == [
+        "00002.npz"]
+    mesh = Mesh.load(os.path.join(out, "mesh", "final_mesh.ply"))
+    assert len(mesh.faces) > 0 and mesh.vertex_colors is not None
+    with np.load(os.path.join(out, "ckpts", "00002.npz")) as ck:
+        assert any(k.startswith("decoders.imap") for k in ck.files) == ("--imap" in flags)
+    capsys.readouterr()
+    eval_ate.main([cfg, "--output", out, "--no_plot"] + flags)
+    printed = capsys.readouterr().out
+    rmse = float(printed.split("absolute_translational_error.rmse:")[1].split()[0])
+    assert np.isfinite(rmse)
 
 
 def test_python_dash_m_runs_on_the_cpu(tmp_path):

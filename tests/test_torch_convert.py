@@ -114,8 +114,9 @@ def test_get_model_builds_the_ports_decoders():
     assert set(dec) == {"middle", "fine", "color", "coarse"}
     again = tconfig.get_model(cfg, nice=True, device="cpu")
     assert torch.equal(dec["color"]["out_w"], again["color"]["out_w"])  # seeded by cfg
-    with pytest.raises(NotImplementedError):
-        tconfig.get_model(cfg, nice=False, device="cpu")
+    imap = tconfig.get_model(tconfig.load_config(tconfig.default_config_path(False)),
+                             nice=False, device="cpu")
+    assert set(imap) == {"imap"} and tuple(imap["imap"]["out_w"].shape) == (256, 4)
 
 
 # ---- imports ------------------------------------------------------------------

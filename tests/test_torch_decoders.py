@@ -1,8 +1,9 @@
 """The port's NICE decoders against the JAX package's on the CPU: all four
 ``nice_forward`` stages with weights made by the JAX package and carried
 across (f32 on both sides, atol 2e-5: sums of a few hundred products in
-another order), gradients, the detach on the middle features, and the
-port's own initialisation."""
+another order), gradients, the detach on the middle features, the port's
+own initialisation, the NICE family with the other embeddings and the iMAP
+decoder (``test_torch_imap_decoders.py`` holds their gradients)."""
 
 import numpy as np
 import pytest
@@ -109,17 +110,27 @@ def test_init_nice_decoders_has_the_jax_layout(scene):
 
 
 @pytest.mark.parametrize("method", ["same", "nerf", "fc_relu"])
-def test_other_embeddings_wait_for_their_slice(method):
-    with pytest.raises(NotImplementedError, match="slice"):
-        td.init_nice_decoders(torch.Generator().manual_seed(0),
-                              pos_embedding_method=method, device="cpu")
+def test_other_embeddings_match_the_jax_package(scene, method):
+    """The NICE family with each non-Fourier embedding, made by the JAX
+    package and carried across: every stage's values within ATOL."""
+    _, gj, _, gt, p = scene
+    dj = jd.init_nice_decoders(jax.random.PRNGKey(2), coarse=True, pos_embedding_method=method)
+    dt = to_torch(dj)
+    for stage in ("coarse", "middle", "fine", "color"):
+        want = jd.nice_forward(dj, gj, jnp.asarray(p), jnp.asarray(BOUND), stage)
+        assert_close(td.nice_forward(dt, gt, t(p), t(BOUND), stage), want, ATOL, msg=stage)
+    own = td.init_nice_decoders(torch.Generator().manual_seed(0), coarse=True,
+                                pos_embedding_method=method, device="cpu")
+    assert torch.isfinite(td.nice_forward(own, gt, t(p), t(BOUND), "color")).all()
 
 
-def test_imap_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="slice"):
-        td.init_imap_decoder(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        td.decoder_forward({}, None, torch.zeros(2, 3), t(BOUND), "color", nice=False)
-    with pytest.raises(ValueError):
-        td.init_nice_decoders(torch.Generator().manual_seed(0),
-                              pos_embedding_method="wavelet", device="cpu")
+def test_imap_decoder_matches_and_unknown_embeddings_raise(scene):
+    p = scene[4]
+    dj = jd.init_imap_decoder(jax.random.PRNGKey(3))
+    want = np.asarray(jd.imap_forward(dj, jnp.asarray(p)))
+    got = td.decoder_forward(to_torch(dj), None, t(p), t(BOUND), "color", nice=False)
+    assert_close(got, want, 1e-5 * float(np.abs(want).max()))
+    for init in (td.init_nice_decoders, td.init_imap_decoder):
+        with pytest.raises(ValueError):
+            init(torch.Generator().manual_seed(0), pos_embedding_method="wavelet",
+                 device="cpu")

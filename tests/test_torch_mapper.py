@@ -393,13 +393,9 @@ def test_map_frame_chunked_equals_unchunked_bitwise(scene):
 
 
 def test_map_frame_and_mapper_refuse_what_is_not_ported():
-    settings = RenderSettings()._replace(nice=False)
-    with pytest.raises(NotImplementedError, match="iMAP"):
-        tm.Mapper(tm.MapperConfig(), Camera(*CAM), settings, BOUND, device="cpu")
-    with pytest.raises(NotImplementedError, match="regulation"):
-        tm._map_loss(({}, {}, torch.zeros(1, 7)), torch.eye(4)[None], None, None, t(BOUND),
-                     None, tm.MapperConfig(), Camera(*CAM),
-                     RenderSettings()._replace(occupancy=False), "color", False, False)
+    """Without a device the mapper means the CUDA device, and refuses where
+    there is none (iMAP and the regulation are ported:
+    ``test_torch_imap_mapping.py``)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tm.Mapper(tm.MapperConfig(), Camera(*CAM), RenderSettings(), BOUND)

@@ -12,7 +12,11 @@ logits 2.3e-6 apart at most, no hull-mask disagreement, vertices 1.1e-5 m):
 - meshes: the same face count, every vertex of each within 1e-4 m of the
   other's nearest vertex, vertex colours within one 8-bit level.
 The lattice has 64,000 points and the chunks 16,384, so the last chunk is
-a short one (trimmed in the port, padded in the JAX package)."""
+a short one (trimmed in the port, padded in the JAX package).
+
+iMAP's meshing (``configs/imap.yaml``: level 10 on raw density, colours
+rendered along the vertex normals) on a random iMAP map against the JAX
+``Mesher``: the same faces, the colours within one 8-bit level."""
 
 import os
 
@@ -98,12 +102,85 @@ def sphere_mesher(monkeypatch):
     return Mesher(cfg, cam, settings=None, bound=bound, points_batch_size=65536, device="cpu")
 
 
-def test_only_direct_point_query_colours_are_ported(sphere_mesher):
-    """iMAP's render_ray_along_normal colours come with iMAP (ROADMAP Queue 1
-    item 3); the mesher refuses them when it is built."""
-    cfg = {"scale": 1.0, "meshing": {"color_mesh_extraction_method": "render_ray_along_normal"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        Mesher(cfg, sphere_mesher.cam, None, np.zeros((3, 2), np.float32), device="cpu")
+# ---- iMAP: density at level 10, colours rendered along the vertex normals --------------
+
+IMAP_RESOLUTION = 24
+IMAP_LEVEL_OFFSET = 9.4  # the density's bias: the random field crosses 10 in places
+
+
+@pytest.fixture(scope="module")
+def imap_both():
+    """Both packages' Mesher at configs/imap.yaml's meshing (level_set 10 on
+    raw density, render_ray_along_normal colours) over a random iMAP map
+    whose density bias is IMAP_LEVEL_OFFSET (2 % of the lattice above 10)."""
+    from evennicer_slam_tpu.render.renderer import Renderer as JRenderer
+
+    from evennicer_slam_tpu_torch.config import default_config_path
+
+    cfg = load_config(default_config_path(False))
+    cfg["mapping"]["marching_cubes_bound"] = BOUND.tolist()
+    cfg["meshing"]["resolution"] = IMAP_RESOLUTION
+    cfg["scale"] = 1.0
+    assert cfg["meshing"]["level_set"] == 10 and not cfg["occupancy"]
+    assert cfg["meshing"]["color_mesh_extraction_method"] == "render_ray_along_normal"
+    frames = list(synthetic_frames(n_frames=12, H=CAM.H, W=CAM.W, fx=CAM.fx, fy=CAM.fy,
+                                   bound=BOUND, traj_step=0.1, furnished=True))
+    kfs = [{"est_c2w": f.c2w.copy(), "depth": f.depth.copy()} for f in frames[::3]]
+    dj = jd.init_imap_decoder(jax.random.PRNGKey(1))
+    dj["imap"]["out_b"] = dj["imap"]["out_b"].at[3].set(IMAP_LEVEL_OFFSET)
+    js = JRenderSettings.from_cfg(cfg, nice=False)
+    jm = JMesher(cfg, JCamera(*CAM), js, BOUND, points_batch_size=BATCH,
+                 renderer=JRenderer(CAM.H, CAM.W, CAM.fx, CAM.fy, CAM.cx, CAM.cy, BOUND, js))
+    tm = Mesher(cfg, CAM, RenderSettings.from_cfg(cfg, nice=False), BOUND,
+                points_batch_size=BATCH, device="cpu")
+    dt = convert.decoders_from_numpy(jax_to_np(dj), device="cpu")
+    return {"jax": (jm, dj), "port": (tm, dt), "kfs": kfs,
+            "est": np.stack([f.c2w for f in frames])}
+
+
+def _imap_meshes(imap_both, tmp_path):
+    (tm, dt), (jm, dj) = imap_both["port"], imap_both["jax"]
+    args = (imap_both["kfs"], imap_both["est"], len(imap_both["est"]) - 1)
+    return (tm.get_mesh(str(tmp_path / "port.ply"), {}, dt, *args),
+            jm.get_mesh(str(tmp_path / "jax.ply"), {}, dj, *args))
+
+
+def test_normal_ray_colours_equal_the_jax_mesher(imap_both, tmp_path):
+    """The same faces at level 10 on density, vertices within VERTEX_ATOL
+    (measured 7.2e-7 m), and the vertex colours rendered along the inward
+    normals within one 8-bit level (measured: equal)."""
+    port, ref = _imap_meshes(imap_both, tmp_path)
+    assert port is not None and ref is not None
+    assert len(port.faces) == len(ref.faces) > 1000
+    np.testing.assert_array_equal(port.faces, ref.faces)
+    assert meshes_apart(port, ref) <= VERTEX_ATOL
+    diff = np.abs(port.vertex_colors.astype(int) - ref.vertex_colors.astype(int))
+    assert diff.max() <= 1
+    assert imap_both["port"][0].last_stats["color_s"] > 0
+
+
+def test_outward_normal_rays_fail_the_colour_comparison(imap_both, tmp_path, monkeypatch):
+    """Planted fault: the rays cast along the outward normal, from outside
+    the surface: 42 % of the vertices then differ by more than one level
+    (none when sound)."""
+    real = mesher_mod._vertex_normals
+    monkeypatch.setattr(mesher_mod, "_vertex_normals", lambda mesh: -real(mesh))
+    port, ref = _imap_meshes(imap_both, tmp_path)
+    diff = np.abs(port.vertex_colors.astype(int) - ref.vertex_colors.astype(int))
+    assert (diff > 1).mean() > 0.2
+
+
+def test_vertex_normals_equal_the_jax_function():
+    from evennicer_slam_tpu.mesh.mesher import _vertex_normals as j_vertex_normals
+
+    rng = np.random.default_rng(6)
+    v = rng.normal(size=(50, 3))
+    faces = rng.integers(0, 50, size=(120, 3))
+    mesh = Mesh(v, faces)
+    got = mesher_mod._vertex_normals(mesh)
+    np.testing.assert_array_equal(got, j_vertex_normals(mesh))
+    used = np.unique(faces)
+    np.testing.assert_allclose(np.linalg.norm(got[used], axis=1), 1.0, rtol=1e-12)
 
 
 def test_get_mesh_full_pipeline(sphere_mesher, tmp_path):

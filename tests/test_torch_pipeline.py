@@ -199,15 +199,31 @@ def test_first_mapping_call_fits_the_coarse_grid_and_cpu_tracking_is_plain(tmp_p
     ({"parallel": {"map_devices": 1}}, "item 5"),
     ({"parallel": {"data_parallel": 2}}, "item 5"),
     ({"enable_vis": True}, "item 4"),
-    ({"nice": False}, "item 3"),
 ])
 def test_unported_options_raise_before_the_first_frame(tmp_path, change, item):
     cfg = tiny_cfg(str(tmp_path / "scene"), 2, events=False)
     cfg["data"]["output"] = str(tmp_path / "out")
-    nice = change.pop("nice", True)
     cfg.update(change)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        EvenNICERSLAM(cfg, nice=nice, device="cpu")
+        EvenNICERSLAM(cfg, device="cpu")
+
+
+def test_nice_false_builds_and_maps_the_imap_model(tmp_path):
+    """``nice=False`` (no longer refused) builds iMAP from the same
+    configuration: no grids, the single MLP, no coarse term, the tracker on
+    the plain decode; frame 0's first mapping call trains the whole MLP
+    (``test_torch_imap_pipeline.py`` holds the run against the JAX
+    package's)."""
+    cfg = tiny_cfg(str(tmp_path / "scene"), 2, events=False)
+    cfg["data"]["output"] = str(tmp_path / "out")
+    slam = EvenNICERSLAM(cfg, nice=False, device="cpu")
+    assert slam.grids == {} and set(slam.decoders) == {"imap"}
+    assert not slam.coarse and not slam.mapper.fuse_coarse
+    assert not slam.tracker.settings.fused_decode and not slam.settings.nice
+    before = {k: v.clone() for k, v in slam.decoders["imap"].items() if torch.is_tensor(v)}
+    slam.step(0)
+    assert all(not torch.equal(slam.decoders["imap"][k], v) for k, v in before.items())
+    assert slam.mapper.keyframes.indices == [0] and slam.grids == {}
 
 
 def test_default_run_meshes_and_device_none_needs_cuda(tmp_path):

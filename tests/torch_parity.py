@@ -57,11 +57,27 @@ def jax_map_draws(seed, stage, n, K, pix, hw, coarse):
     return torch.from_numpy(np.stack(out).astype(np.int64))
 
 
+def jax_regulation_draws(seed, stage, n, rays, n_samples):
+    """The JAX mapper's free-space regulation jitter of a stage's n
+    iterations, as the port takes it: [n, rays, n_samples] (``_map_loss``
+    folds 1 into the iteration's key)."""
+    out = []
+    for it in range(n):
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed)),
+                                                    np.int32(tm.STAGE_IDS[stage])), np.int32(it))
+        out.append(np.asarray(jax.random.uniform(jax.random.fold_in(key, 1), (rays, n_samples))))
+    return torch.from_numpy(np.stack(out))
+
+
 class JaxDrawsMapper(tm.Mapper):
-    """The port's mapper with the JAX package's pixel and selection draws."""
+    """The port's mapper with the JAX package's pixel, regulation and
+    selection draws."""
 
     def _draw_pixels(self, seed, stage, term, n, K, pix):
         return jax_map_draws(seed, stage, n, K, pix, self.cam.H * self.cam.W, bool(term))
+
+    def _draw_regulation(self, seed, stage, n, rays):
+        return jax_regulation_draws(seed, stage, n, rays, self.settings.n_samples)
 
     def _selection_draws(self, seed, n_kf):
         k_pix, k_pri = jax.random.split(jax.random.PRNGKey(np.uint32(seed * 2 + 1)))

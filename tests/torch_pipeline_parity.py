@@ -58,13 +58,21 @@ def tiny_cfg(scene_dir, n_frames, events, load=load_config, update=update_recurs
     return cfg
 
 
-def run_jax(tmp, n_frames, events, **overrides):
+# iMAP as ``tests/test_slam.py::test_imap_mode`` configures it over tiny_cfg:
+# configs/imap.yaml's rendering and density compositing, the scene at scale 1
+IMAP = {"occupancy": False, "scale": 1.0, "coarse": False,
+        "rendering": {"N_importance": 12, "N_samples": 32, "N_surface": 0, "lindisp": False,
+                      "perturb": 0.0},
+        "mapping": {"imap_decoders_lr": 0.0002}}
+
+
+def run_jax(tmp, n_frames, events, nice=True, **overrides):
     """The JAX pipeline's whole run; returns its initial state (numpy), the
     pipeline and the mapping calls' event integrals."""
     cfg = tiny_cfg(os.path.join(tmp, "scene"), n_frames, events, j_load_config, j_update,
                    **overrides)
     cfg["data"]["output"] = os.path.join(tmp, "jax")
-    slam = JaxSLAM(cfg)
+    slam = JaxSLAM(cfg, nice=nice)
     state = tuple(jax_to_np(t) for t in (slam.grids, slam.decoders, slam.eventnet))
     integrals = record_integrals(slam)
     est = slam.run(mesh=False).copy()
@@ -86,12 +94,12 @@ def record_integrals(slam):
     return seen
 
 
-def port_pipeline(tmp, name, n_frames, events, state, **overrides):
+def port_pipeline(tmp, name, n_frames, events, state, nice=True, **overrides):
     """The port's pipeline on the CPU from the JAX pipeline's initial state,
     with the JAX package's tracker and mapper draws handed in."""
     cfg = tiny_cfg(os.path.join(tmp, "scene"), n_frames, events, **overrides)
     cfg["data"]["output"] = os.path.join(tmp, name)
-    slam = EvenNICERSLAM(cfg, device="cpu")
+    slam = EvenNICERSLAM(cfg, nice=nice, device="cpu")
     convert.pipeline_state_from_numpy(slam, *state)
     use_jax_draws(slam)
     return slam
