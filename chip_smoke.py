@@ -83,6 +83,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 import argparse
 import contextlib
 import copy
+import glob
 import json
 import math
 import os
@@ -123,6 +124,9 @@ from evennicer_slam_tpu_torch.core.rays import (  # noqa: E402
     sample_pixels,
 )
 from evennicer_slam_tpu_torch.data.datasets import get_dataset  # noqa: E402
+from evennicer_slam_tpu_torch.data.jpeg import decode_jpeg, write_jpeg  # noqa: E402
+from evennicer_slam_tpu_torch.data.png import read_png  # noqa: E402
+from evennicer_slam_tpu_torch.data.undistort import Undistorter  # noqa: E402
 from evennicer_slam_tpu_torch.data.synthetic import (  # noqa: E402
     make_synthetic_replica,
     scene_gt_mesh,
@@ -147,7 +151,7 @@ from evennicer_slam_tpu_torch.render.renderer import (  # noqa: E402
 )
 from evennicer_slam_tpu_torch.slam.camera import Camera  # noqa: E402
 from evennicer_slam_tpu_torch.slam import mapper as mapper_module  # noqa: E402
-from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig  # noqa: E402
+from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig, stage_schedule  # noqa: E402
 from evennicer_slam_tpu_torch.slam.pipeline import EvenNICERSLAM  # noqa: E402
 from evennicer_slam_tpu_torch.slam.tracker import (  # noqa: E402
     Tracker,
@@ -166,6 +170,7 @@ from evennicer_slam_tpu_torch.tools.eval_recon import (  # noqa: E402
 from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger  # noqa: E402
 from evennicer_slam_tpu_torch.utils.optim import tree_map  # noqa: E402
 from evennicer_slam_tpu_torch.utils.runtime import setup_torch  # noqa: E402
+from evennicer_slam_tpu_torch.utils.visualizer import MARGIN as VIS_MARGIN  # noqa: E402
 
 SEED = 0
 BOUND = np.array([[-2.0, 2.0], [-1.6, 1.6], [-1.2, 1.2]], np.float32)
@@ -1537,7 +1542,7 @@ def command_line(frag):
     """``evennicer_slam_tpu_torch.run.main`` in process on the scene on disk:
     frames 0-5 into ``CLI_OUT``; a checkpoint, ``mesh/final_mesh.ply`` and a
     finite ATE of the checkpoint (``tools/eval_ate.evaluate_checkpoint``,
-    no plot: the card's machine has no matplotlib)."""
+    no plot)."""
     shutil.rmtree(CLI_OUT, ignore_errors=True)
     os.makedirs(CLI_OUT)
     cfg = pipeline_config(frag)
@@ -1860,6 +1865,218 @@ def imap_phase(frag, dev):
     return [f"imap: {x}" for x in failed], res
 
 
+# ---- 15. shipped formats ----------------------------------------------------------
+# Phase 12's scene with its colour frames re-encoded as JPEG (write_jpeg,
+# quality 95), as Replica ships them; depth and events stay PNG, as Replica
+# ships them (the event folder is phase 12's). All 33 frames are written, so
+# that frames 0-25 run on the schedule of phase 12 (no final colour refinement
+# at frame 25). TUM freiburg1's camera (configs/TUM_RGBD/freiburg1_desk.yaml)
+# times the undistortion.
+JPEG_SCENE_DIR = os.path.join(cuda_build.BUILD_DIR, "room_scene_jpeg")
+JPEG_QUALITY = 95
+JPEG_PSNR_MIN = 40.0
+DECODE_TIMED = 5       # the median of the first five frames' decodes
+SPEED_BLOCKS = 2       # timed 5-frame blocks after frames 0-5, frames not preloaded
+TUM_FR1 = {"H": 480, "W": 640, "fx": 517.3, "fy": 516.5, "cx": 318.6, "cy": 255.3,
+           "distortion": [0.2624, -0.9531, -0.0054, 0.0026, 1.1633]}
+UNDISTORT_CALLS = 5
+VIS_FRAMES = 11        # frames 0-10 with the visualiser on
+VIS_FREQ = 5
+VIS_INSIDE = 25        # mapping.vis_inside_freq as shipped: a mapping panel every 49 iterations
+VIS_ITERS_FIRST = 60   # cut: the panels check the schedule, not the fitted map
+
+
+def write_jpeg_scene(frag):
+    """Phase 12's scene on disk with JPEG colour frames under
+    ``JPEG_SCENE_DIR`` (depth linked, events read from phase 12's folder).
+    Returns (the scene's config fragment, seconds)."""
+    t0 = time.perf_counter()
+    src = frag["data"]["input_folder"]
+    res = os.path.join(JPEG_SCENE_DIR, "results")
+    shutil.rmtree(JPEG_SCENE_DIR, ignore_errors=True)
+    os.makedirs(res)
+    for path in sorted(glob.glob(os.path.join(src, "results", "frame*.png"))):
+        name = os.path.basename(path)[:-len(".png")] + ".jpg"
+        write_jpeg(os.path.join(res, name), read_png(path), JPEG_QUALITY)
+    for path in sorted(glob.glob(os.path.join(src, "results", "depth*.png"))) + [
+            os.path.join(src, "traj.txt")]:
+        dst = os.path.join(res if "depth" in os.path.basename(path) else JPEG_SCENE_DIR,
+                           os.path.basename(path))
+        try:
+            os.link(path, dst)
+        except OSError:
+            shutil.copyfile(path, dst)
+    jfrag = copy.deepcopy(frag)
+    jfrag["data"]["input_folder"] = JPEG_SCENE_DIR
+    return jfrag, time.perf_counter() - t0
+
+
+def decode_checks(frag, jfrag):
+    """ms per JPEG and per PNG decode of the same 680x1200 colour frames,
+    the decoded JPEG frames' PSNR against the PNG source, and ms per
+    ``undistort`` of a 480x640 colour frame with TUM freiburg1's
+    coefficients (the first call computes the map, later calls reuse it)."""
+    jpg = sorted(glob.glob(os.path.join(jfrag["data"]["input_folder"], "results",
+                                        "frame*.jpg")))[:MAP_FRAMES]
+    jpeg_ms, png_ms, psnr = [], [], []
+    for path in jpg:
+        png = os.path.join(frag["data"]["input_folder"], "results",
+                           os.path.basename(path)[:-len(".jpg")] + ".png")
+        with open(path, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        img = decode_jpeg(data, path=path)
+        jpeg_ms.append(1e3 * (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        ref = read_png(png)
+        png_ms.append(1e3 * (time.perf_counter() - t0))
+        mse = float(np.mean((img.astype(np.float64) - ref) ** 2))
+        psnr.append(10 * math.log10(255.0 ** 2 / max(mse, 1e-12)))
+    cam = TUM_FR1
+    K = np.array([[cam["fx"], 0, cam["cx"]], [0, cam["fy"], cam["cy"]], [0, 0, 1]])
+    rgb = np.random.default_rng(SEED).integers(0, 256, (cam["H"], cam["W"], 3), np.uint8)
+    und = Undistorter(K, cam["distortion"])
+    t0 = time.perf_counter()
+    out = und(rgb)
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    und_ms = []
+    for _ in range(UNDISTORT_CALLS):
+        t0 = time.perf_counter()
+        out = und(rgb)
+        und_ms.append(1e3 * (time.perf_counter() - t0))
+    res = {"frames": len(jpg), "hw": list(img.shape),
+           "jpeg_decode_ms_median5": float(np.median(jpeg_ms[:DECODE_TIMED])),
+           "jpeg_decode_ms_all": [round(x, 1) for x in jpeg_ms],
+           "png_decode_ms_median5": float(np.median(png_ms[:DECODE_TIMED])),
+           "png_decode_ms_all": [round(x, 1) for x in png_ms],
+           "jpeg_bytes_median": float(np.median([os.path.getsize(p) for p in jpg])),
+           "psnr_db_min": min(psnr), "psnr_db_median": float(np.median(psnr)),
+           "psnr_bar_db": JPEG_PSNR_MIN,
+           "undistort_480x640_first_ms": first_ms,
+           "undistort_480x640_ms_median": float(np.median(und_ms))}
+    failed = []
+    if len(jpg) != MAP_FRAMES or img.shape != (frag["cam"]["H"], frag["cam"]["W"], 3):
+        failed.append(f"{len(jpg)} JPEG frames of shape {img.shape}")
+    if not min(psnr) >= JPEG_PSNR_MIN:
+        failed.append(f"a decoded JPEG frame at {min(psnr):.2f} dB, below {JPEG_PSNR_MIN} dB")
+    if out.shape != rgb.shape or out.dtype != np.uint8 or not out.any():
+        failed.append("undistort gave no image")
+    return failed, res
+
+
+def block_speed(frag, dev, label):
+    """Phase 12's configuration over a scene, frames not preloaded: frames
+    0-5, then SPEED_BLOCKS timed blocks of five frames, each ending with its
+    steady mapping call and a synchronise. Returns frames per second a block."""
+    cfg = pipeline_config(frag)
+    cfg["data"]["output"] = os.path.join(JPEG_SCENE_DIR, f"output_speed_{label}")
+    slam = EvenNICERSLAM(cfg, device=dev)
+    for idx in range(PIPE_WARM):
+        slam.step(idx)
+    torch.cuda.synchronize()
+    fps = []
+    for b in range(SPEED_BLOCKS):
+        t0 = time.perf_counter()
+        for idx in range(PIPE_WARM + b * PIPE_BLOCK, PIPE_WARM + (b + 1) * PIPE_BLOCK):
+            slam.step(idx)
+        torch.cuda.synchronize()
+        fps.append(PIPE_BLOCK / (time.perf_counter() - t0))
+    return fps, slam.timers.summary()
+
+
+def vis_run(jfrag, dev):
+    """``EvenNICERSLAM.run`` over frames 0-10 of the JPEG scene with the
+    visualiser on (``vis_freq`` 5; the first mapping call cut to
+    VIS_ITERS_FIRST iterations): the panels written against the names the
+    schedule implies, each decoded by the port's decoder to the mosaic's
+    shape. Returns (failures, results)."""
+    cfg = pipeline_config(jfrag)
+    out = os.path.join(JPEG_SCENE_DIR, "output_vis")
+    update_recursive(cfg, {"enable_vis": True, "data": {"output": out},
+                           "tracking": {"vis_freq": VIS_FREQ},
+                           "mapping": {"vis_freq": VIS_FREQ, "vis_inside_freq": VIS_INSIDE,
+                                       "iters_first": VIS_ITERS_FIRST}})
+    slam = EvenNICERSLAM(cfg, device=dev)
+    t0 = time.perf_counter()
+    slam.run(end_frame=VIS_FRAMES, mesh=False, checkpoint=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    m = slam.m_cfg
+    inside = 2 * VIS_INSIDE - 1
+    want = {"tracking_vis": [f"{i:05d}_0000.jpg" for i in range(1, VIS_FRAMES)
+                             if i % VIS_FREQ == 0], "mapping_vis": []}
+    for idx in range(VIS_FRAMES):
+        if idx % m.every_frame == 0 and idx % VIS_FREQ == 0:
+            stages, seg = stage_schedule(m.iters_first if idx == 0 else m.iters,
+                                         slam.mapper.cfg, False, False, True)
+            total = sum(seg[st] for st in stages)
+            want["mapping_vis"] += [f"{idx:05d}_{it:04d}.jpg" for it in range(0, total, inside)]
+    got = {sub: sorted(os.listdir(os.path.join(out, sub))) for sub in want
+           if os.path.isdir(os.path.join(out, sub))}
+    H, W = slam.cam.H, slam.cam.W
+    failed, shapes, decode_ms = [], {}, []
+    if got != want:
+        failed.append(f"panels {got}, expected {want}")
+    for sub, names in got.items():
+        rows = 3 if sub == "tracking_vis" and slam.use_events else 2
+        want_shape = (rows * (H + VIS_MARGIN) + VIS_MARGIN, 3 * (W + VIS_MARGIN) + VIS_MARGIN, 3)
+        for name in names:
+            with open(os.path.join(out, sub, name), "rb") as f:
+                data = f.read()
+            t0 = time.perf_counter()
+            img = decode_jpeg(data)
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            shapes[f"{sub}/{name}"] = list(img.shape)
+            if img.shape != want_shape:
+                failed.append(f"{sub}/{name} decodes to {img.shape}, expected {want_shape}")
+    res = {"frames": VIS_FRAMES, "panels": got, "panel_shapes": sorted(
+        {tuple(v) for v in shapes.values()}), "run_s": run_s,
+           "panel_decode_ms_median": float(np.median(decode_ms)) if decode_ms else None}
+    return [f"visualiser: {f}" for f in failed], res
+
+
+def shipped_formats(frag, dev, ate_png_every):
+    """Phase 15: the JPEG scene written, the decode checks, the blocks'
+    speed over JPEG and over PNG frames (not preloaded), ``EvenNICERSLAM.run``
+    over frames 0-25 of the JPEG scene with RGB-D + event on every frame (its
+    ATE below a camera held at frame 0; ``ate_png_every`` is phase 12's
+    reading on the PNG scene, printed beside), the visualiser. Returns
+    (failures, results, the decode kernels' launches of the phase)."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    jfrag, write_s = write_jpeg_scene(frag)
+    failed, dec = decode_checks(frag, jfrag)
+    speed = {}
+    for label, f in (("jpeg", jfrag), ("png", frag)):
+        fps, dispatch = block_speed(f, dev, label)
+        speed[label] = {"fps_blocks": fps, "fps_median": float(np.median(fps)),
+                        "host_dispatch": dispatch}
+    fwd0, bwd0 = launches()
+    ate, held, err, slam = run_pipeline(jfrag, dev, 1, label="jpeg_every")
+    torch.cuda.synchronize()
+    fwd1, bwd1 = launches()
+    want = 2 * slam.t_cfg.iters * (MAP_FRAMES - 1)
+    if not ate < held:
+        failed.append(f"JPEG scene: ATE {ate:.4f} m is not below the held camera's {held:.4f} m")
+    if (fwd1 - fwd0, bwd1 - bwd0) != (want, want):
+        failed.append(f"JPEG scene: the decode kernels launched {fwd1 - fwd0} / {bwd1 - bwd0} "
+                      f"times, expected {want}")
+    del slam
+    failed_vis, vis = vis_run(jfrag, dev)
+    failed += failed_vis
+    n_fwd, n_bwd = launches()
+    if not (n_fwd > 0 and n_bwd > 0):
+        failed.append("no decode kernel launched in the phase")
+    res = {"jpeg_scene_write_s": write_s, "decode": dec, "speed_not_preloaded": speed,
+           "jpeg_every_frame": {"ate_rmse_m": ate, "held_camera_rmse_m": held,
+                                "ate_png_every_frame_phase12_m": ate_png_every,
+                                "err_mm_per_frame": err},
+           "visualiser": vis, "fwd_launches": n_fwd, "bwd_launches": n_bwd,
+           "phase_s": time.perf_counter() - t_phase}
+    say("shipped formats: " + json.dumps(res))
+    return [f"shipped formats: {f}" for f in failed], res, (n_fwd, n_bwd)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2094,6 +2311,11 @@ def main():
     # ---- 14. iMAP -----------------------------------------------------------------
     failed_imap, imap_res = imap_phase(frag, dev)
     failed += failed_imap
+
+    # ---- 15. shipped formats ----------------------------------------------------
+    failed_fmt, fmt_res, (launches_fmt_fwd, launches_fmt_bwd) = shipped_formats(
+        frag, dev, every_res["ate_rmse_m"])
+    failed += failed_fmt
     if failed:
         raise RuntimeError("; ".join(failed))
 
@@ -2109,13 +2331,14 @@ def main():
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:177",
         "launches": (launches_main + launches_track_fwd + launches_map_fwd + launches_pipe_fwd
-                     + launches_cli_fwd),
+                     + launches_cli_fwd + launches_fmt_fwd),
         "launches_scores": launches_main,
         "launches_tracking": launches_track_fwd,
         "launches_map_and_track": launches_map_fwd,
         "launches_pipeline": launches_pipe_fwd,
         "launches_command_line": launches_cli_fwd,
         "launches_imap": imap_res["fused_decode_launches"][0],
+        "launches_shipped_formats": launches_fmt_fwd,
         "max_abs_err": max(main_res["max_abs_err"], small["max_abs_err"]),
         "ms": main_res["ms"],
         "plain_ms": main_res["plain_ms"],
@@ -2134,12 +2357,14 @@ def main():
         "route": "cuda",
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode_bwd.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:188",
-        "launches": launches_track_bwd + launches_map_bwd + launches_pipe_bwd + launches_cli_bwd,
+        "launches": (launches_track_bwd + launches_map_bwd + launches_pipe_bwd + launches_cli_bwd
+                     + launches_fmt_bwd),
         "launches_tracking": launches_track_bwd,
         "launches_map_and_track": launches_map_bwd,
         "launches_pipeline": launches_pipe_bwd,
         "launches_command_line": launches_cli_bwd,
         "launches_imap": imap_res["fused_decode_launches"][1],
+        "launches_shipped_formats": launches_fmt_bwd,
         "max_abs_err": max(bwd_main["max_abs_err"], bwd_small["max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
@@ -2189,6 +2414,16 @@ def main():
         | {"meshes": [{k: r[k] for k in ("total_s", "sweep_s", "march_s", "clean_s", "color_s",
                                           "export_s", "faces")} for r in imap_res["meshes"]],
            "command_line": imap_res["command_line"]}))
+    say("shipped formats: " + json.dumps({
+        "decode": {k: fmt_res["decode"][k] for k in (
+            "jpeg_decode_ms_median5", "png_decode_ms_median5", "psnr_db_min",
+            "undistort_480x640_first_ms", "undistort_480x640_ms_median")},
+        "fps_not_preloaded": {k: v["fps_blocks"] for k, v in
+                              fmt_res["speed_not_preloaded"].items()},
+        "jpeg_every_frame": {k: v for k, v in fmt_res["jpeg_every_frame"].items()
+                             if k != "err_mm_per_frame"},
+        "visualiser_panels": {k: len(v) for k, v in fmt_res["visualiser"]["panels"].items()},
+        "phase_s": fmt_res["phase_s"]}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -1,30 +1,68 @@
-"""Dataset readers (counterpart of ``evennicer_slam_tpu/data/datasets.py``;
-numpy only, the PNG files through ``data/png.py``).
+"""Dataset readers (counterpart of ``evennicer_slam_tpu/data/datasets.py``):
+all nine families of the JAX package,
 
-Ported: ``replica`` and ``replica_event``, the format the synthetic scene
-writer produces (``data/synthetic.py::make_synthetic_replica``). The other
-families of the JAX package (rpg, rpg_event, rpg_event_dense, azure, scannet,
-cofusion, tumrgbd), JPEG frames and ``cam.distortion`` raise
-``NotImplementedError``: they need a JPEG decoder and a numpy ``undistort``
-(ROADMAP Queue 1 item 4).
+    replica, replica_event, rpg, rpg_event, rpg_event_dense,
+    azure, scannet, cofusion, tumrgbd
+
+in numpy, without OpenCV: images through :func:`read_image` (``data/png.py``,
+``data/jpeg.py``, chosen by the file's magic bytes as ``cv2.imread`` does),
+``cam.distortion`` through ``data/undistort.py`` (the map computed once per
+reader), EXR depth through ``data/exr.py``.
 
 Every reader yields a :class:`Frame` with host numpy arrays: colour RGB in
 [0, 1], depth scaled, the event image as counts with polarity order [-, +]
 (all zero for non-event datasets), the pose with the y/z camera axes flipped
-and the translation scaled, as the JAX package's readers do.
+and the translation scaled, as the JAX package's readers do. Images stay in
+the file's channel order (RGB), so the JAX readers' BGR -> RGB swaps have no
+counterpart here; the frames come out equal.
 """
 
 from __future__ import annotations
 
 import glob
+import os
 from typing import Dict, List
 
 import numpy as np
 
-from evennicer_slam_tpu_torch.data.png import read_png
+from evennicer_slam_tpu_torch.data.exr import read_exr_depth
+from evennicer_slam_tpu_torch.data.jpeg import SOI, decode_jpeg
+from evennicer_slam_tpu_torch.data.png import SIGNATURE, decode_png, read_png
 from evennicer_slam_tpu_torch.data.synthetic import Frame
+from evennicer_slam_tpu_torch.data.undistort import Undistorter
 
-LATER = "ROADMAP Queue 1 item 4 (host side, the other datasets, and tools)"
+
+def _png_grey(rgb: np.ndarray) -> np.ndarray:
+    """An RGB PNG read as grey, as ``cv2.imread(..., IMREAD_GRAYSCALE)``
+    returns it: libpng's ``rgb_to_gray`` with OpenCV's weights 0.299 and
+    0.587 in 15-bit fixed point, truncated (9797, 19234, 3737 / 32768)."""
+    rgb = rgb.astype(np.int64)
+    return ((9797 * rgb[..., 0] + 19234 * rgb[..., 1] + 3737 * rgb[..., 2]) >> 15).astype(
+        np.uint8)
+
+
+def read_image(path: str, grayscale: bool = False) -> np.ndarray:
+    """An 8-bit PNG or JPEG file -> ``[H, W, 3]`` RGB uint8, or ``[H, W]``
+    with ``grayscale``: ``cv2.imread`` with ``IMREAD_COLOR`` /
+    ``IMREAD_GRAYSCALE``, channels in the file's order. The format is told
+    by the magic bytes, not by the extension."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] == SIGNATURE:
+        img = decode_png(data, path)
+        if img.dtype != np.uint8:
+            raise ValueError(f"{path}: colour frames are 8-bit, got {img.dtype}")
+        if img.ndim == 3:
+            img = img[..., :3]
+            if grayscale:
+                img = _png_grey(img)
+    elif data[:2] == SOI:
+        img = decode_jpeg(data, grayscale, path)
+    else:
+        raise ValueError(f"{path}: neither a PNG nor a JPEG file")
+    if not grayscale and img.ndim == 2:
+        img = np.repeat(img[..., None], 3, axis=-1)
+    return img
 
 
 def as_intrinsics_matrix(intrinsics) -> np.ndarray:
@@ -94,7 +132,7 @@ def _interp_nearest(img: np.ndarray, out_hw) -> np.ndarray:
 
 
 def _load_traj_txt(path: str, n: int) -> List[np.ndarray]:
-    """Replica-style traj.txt: 16 floats per line, y/z flipped."""
+    """Replica/RPG-style traj.txt: 16 floats per line, y/z flipped."""
     with open(path) as f:
         lines = f.readlines()
     return [_flip_yz(np.array(list(map(float, lines[i].split()))).reshape(4, 4))
@@ -102,8 +140,8 @@ def _load_traj_txt(path: str, n: int) -> List[np.ndarray]:
 
 
 class BaseDataset:
-    """Shared preprocessing: colour /255, depth / png_depth_scale * scale,
-    crop_size resize, crop_edge crop."""
+    """Shared preprocessing: colour /255 after the optional undistortion,
+    depth / png_depth_scale * scale, crop_size resize, crop_edge crop."""
 
     has_events = False
 
@@ -114,8 +152,9 @@ class BaseDataset:
         cam = cfg["cam"]
         self.H, self.W = cam["H"], cam["W"]
         self.fx, self.fy, self.cx, self.cy = cam["fx"], cam["fy"], cam["cx"], cam["cy"]
-        if "distortion" in cam:
-            raise NotImplementedError(f"cam.distortion needs a numpy undistort: {LATER}")
+        self.distortion = np.array(cam["distortion"]) if "distortion" in cam else None
+        self.undistort = None if self.distortion is None else Undistorter(
+            as_intrinsics_matrix([self.fx, self.fy, self.cx, self.cy]), self.distortion)
         self.crop_size = cam.get("crop_size")
         self.crop_edge = cam["crop_edge"]
         input_folder = getattr(args, "input_folder", None) if args else None
@@ -128,18 +167,27 @@ class BaseDataset:
     def __len__(self):
         return self.n_img
 
-    def _read_color(self, path: str) -> np.ndarray:
-        data = read_png(path)  # RGB: the file's order (cv2 would return BGR)
-        if data.ndim == 2:
+    def _read_color(self, path: str, grayscale: bool = False) -> np.ndarray:
+        data = read_image(path, grayscale)
+        if grayscale:
             data = np.repeat(data[..., None], 3, axis=-1)
-        if data.dtype != np.uint8:
-            raise ValueError(f"{path}: colour frames are 8-bit, got {data.dtype}")
-        return data[..., :3].astype(np.float64) / 255.0
+        if self.undistort is not None:
+            data = self.undistort(data)
+        return data.astype(np.float64) / 255.0
 
     def _read_depth(self, path: str) -> np.ndarray:
-        if not path.endswith(".png"):
-            raise NotImplementedError(f"{path}: depth other than PNG: {LATER}")
-        return read_png(path).astype(np.float32) / self.png_depth_scale
+        if path.endswith(".exr"):
+            depth = read_exr_depth(path)
+        else:
+            depth = read_png(path)
+        return depth.astype(np.float32) / self.png_depth_scale
+
+    def _read_event_image(self, path: str) -> np.ndarray:
+        """An event PNG as float64 RGB, undistorted as the colour is."""
+        data = read_image(path).astype(np.float64)
+        if self.undistort is not None:
+            data = self.undistort(data)
+        return data
 
     def _postprocess(self, color, depth, event=None):
         H, W = depth.shape
@@ -179,30 +227,39 @@ class BaseDataset:
         return Frame(index, color, depth, event, mask, self._pose(index))
 
 
+
+
+def _event_frame(index, color, depth, event, pose) -> Frame:
+    mask = (np.any(event != 0, axis=-1)).astype(np.int32)
+    return Frame(index, color, depth, event, mask, pose)
+
+
 class Replica(BaseDataset):
     def __init__(self, cfg, args=None, scale=1.0):
         super().__init__(cfg, args, scale)
-        if glob.glob(f"{self.input_folder}/results/frame*.jpg"):
-            raise NotImplementedError(
-                f"{self.input_folder}: JPEG frames need a JPEG decoder: {LATER}")
-        self.color_paths = sorted(glob.glob(f"{self.input_folder}/results/frame*.png"))
+        self.color_paths = sorted(glob.glob(f"{self.input_folder}/results/frame*.jpg"))
+        if not self.color_paths:  # the synthetic scenes write PNG
+            self.color_paths = sorted(glob.glob(f"{self.input_folder}/results/frame*.png"))
         self.depth_paths = sorted(glob.glob(f"{self.input_folder}/results/depth*.png"))
         self.n_img = len(self.color_paths)
         self.poses = _load_traj_txt(f"{self.input_folder}/traj.txt", self.n_img)
 
 
+def _event_folder(cfg, args) -> str:
+    event_folder = getattr(args, "event_folder", None) if args else None
+    return event_folder or cfg["data"]["event_folder"]
+
+
 class ReplicaEvent(Replica):
-    """Replica + ground-truth event PNGs. The event file holds
-    [0, -, +] in RGB order (cv2 reads it as BGR [+, -, 0] and the JAX
-    reader swaps it back); channels 1: are kept -> polarity order [-, +].
-    Frame 0 gets an all-black event image."""
+    """Replica + ground-truth event PNGs. The event file holds [0, -, +] in
+    RGB order; channels 1: are kept -> polarity order [-, +]. Frame 0 gets
+    an all-black event image."""
 
     has_events = True
 
     def __init__(self, cfg, args=None, scale=1.0):
         super().__init__(cfg, args, scale)
-        event_folder = getattr(args, "event_folder", None) if args else None
-        self.event_folder = event_folder or cfg["data"]["event_folder"]
+        self.event_folder = _event_folder(cfg, args)
         self.event_paths = sorted(glob.glob(f"{self.event_folder}/*frame*.png"))
         self.n_event = len(self.event_paths)
         if self.n_event != self.n_img - 1:
@@ -211,33 +268,229 @@ class ReplicaEvent(Replica):
 
     def _read_event(self, index: int, like_shape) -> np.ndarray:
         if index - 1 >= 0:
-            data = read_png(self.event_paths[index - 1]).astype(np.float64)
-        else:
-            data = np.zeros(like_shape, np.float64)
-        return data.astype(np.float32)
+            return self._read_event_image(self.event_paths[index - 1]).astype(np.float32)
+        return np.zeros(like_shape, np.float32)
 
     def __getitem__(self, index: int) -> Frame:
         color = self._read_color(self.color_paths[index])
         depth = self._read_depth(self.depth_paths[index])
         event = self._read_event(index, color.shape)
         color, depth, event = self._postprocess(color, depth, event)
-        event = event[:, :, 1:]  # [-, +]
-        mask = (np.any(event != 0, axis=-1)).astype(np.int32)
+        return _event_frame(index, color, depth, event[:, :, 1:], self._pose(index))
+
+
+class RPG(BaseDataset):
+    """RPG: grey frames (read as grey, repeated to three channels)."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths = sorted(glob.glob(f"{self.input_folder}/results/frame*"))
+        self.depth_paths = sorted(glob.glob(f"{self.input_folder}/results/depth*"))
+        self.n_img = len(self.color_paths)
+        self.poses = _load_traj_txt(f"{self.input_folder}/traj.txt", self.n_img)
+
+    def __getitem__(self, index: int) -> Frame:
+        color = self._read_color(self.color_paths[index], grayscale=True)
+        depth = self._read_depth(self.depth_paths[index])
+        color, depth, _ = self._postprocess(color, depth)
+        event = np.zeros((*depth.shape, 2), np.float32)
+        mask = np.zeros(depth.shape, np.int32)
         return Frame(index, color, depth, event, mask, self._pose(index))
+
+
+class RPGEvent(RPG):
+    """RPG grey frames + event PNGs, which hold [+, -, 0] in RGB order: the
+    green and red channels, in that order, give polarity order [-, +]."""
+
+    has_events = True
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.event_folder = _event_folder(cfg, args)
+        self.event_paths = sorted(glob.glob(f"{self.event_folder}/*.png"))
+        self.n_event = len(self.event_paths)
+        if self.n_event != self.n_img - 1:
+            raise ValueError(f"{self.event_folder}: {self.n_event} event frames for "
+                             f"{self.n_img} images; expected one fewer")
+
+    def _read_event(self, event_index: int, like_shape) -> np.ndarray:
+        if event_index >= 0:
+            return self._read_event_image(self.event_paths[event_index]).astype(np.float32)
+        return np.zeros(like_shape, np.float32)
+
+    def __getitem__(self, index: int) -> Frame:
+        color = self._read_color(self.color_paths[index], grayscale=True)
+        depth = self._read_depth(self.depth_paths[index])
+        event = self._read_event(index - 1, color.shape)
+        color, depth, event = self._postprocess(color, depth, event)
+        return _event_frame(index, color, depth, event[:, :, [1, 0]], self._pose(index))
+
+
+class RPGEventDense(RPGEvent):
+    """Densified event frames: ``density`` event frames per RGB frame, poses
+    from ``traj_density{d}.txt``; colour and depth are those of frame
+    ``index // density``."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        RPG.__init__(self, cfg, args, scale)  # its own event count check
+        self.event_folder = _event_folder(cfg, args)
+        self.event_paths = sorted(glob.glob(f"{self.event_folder}/*.png"))
+        self.density = cfg["data"]["density"]
+        self.n_event = len(self.event_paths)
+        if self.n_event != self.n_img * self.density - self.density:
+            raise ValueError(f"{self.event_folder}: {self.n_event} event frames for "
+                             f"{self.n_img} images at density {self.density}")
+        self.poses = _load_traj_txt(f"{self.input_folder}/traj_density{self.density}.txt",
+                                    self.n_event + 1)
+
+    def __len__(self):
+        return self.n_event + 1
+
+    def __getitem__(self, index: int) -> Frame:
+        color = self._read_color(self.color_paths[index // self.density], grayscale=True)
+        depth = self._read_depth(self.depth_paths[index // self.density])
+        event = self._read_event(index - 1, color.shape)
+        color, depth, event = self._postprocess(color, depth, event)
+        return _event_frame(index, color, depth, event[:, :, [1, 0]], self._pose(index))
+
+
+class Azure(BaseDataset):
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths = sorted(glob.glob(os.path.join(self.input_folder, "color", "*.jpg")))
+        self.depth_paths = sorted(glob.glob(os.path.join(self.input_folder, "depth", "*.png")))
+        self.n_img = len(self.color_paths)
+        self._load_poses(os.path.join(self.input_folder, "scene", "trajectory.log"))
+
+    def _load_poses(self, path):
+        """trajectory.log: a header line and four matrix rows a frame;
+        identity poses where there is none."""
+        if not os.path.exists(path):
+            self.poses = [np.eye(4, dtype=np.float32) for _ in range(self.n_img)]
+            return
+        with open(path) as f:
+            content = f.readlines()
+        self.poses = [
+            _flip_yz(np.array(list(map(float, "".join(content[i + 1:i + 5]).strip().split())))
+                     .reshape(4, 4)).astype(np.float32)
+            for i in range(0, len(content), 5)]
+
+
+def _by_number(path: str) -> int:
+    return int(os.path.basename(path)[:-4])
+
+
+class ScanNet(BaseDataset):
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.input_folder = os.path.join(self.input_folder, "frames")
+        self.color_paths = sorted(glob.glob(os.path.join(self.input_folder, "color", "*.jpg")),
+                                  key=_by_number)
+        self.depth_paths = sorted(glob.glob(os.path.join(self.input_folder, "depth", "*.png")),
+                                  key=_by_number)
+        pose_paths = sorted(glob.glob(os.path.join(self.input_folder, "pose", "*.txt")),
+                            key=_by_number)
+        self.poses = [_flip_yz(np.loadtxt(p).reshape(4, 4)).astype(np.float32)
+                      for p in pose_paths]
+        self.n_img = len(self.color_paths)
+
+
+class CoFusion(BaseDataset):
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths = sorted(glob.glob(os.path.join(self.input_folder, "colour", "*.png")))
+        self.depth_paths = sorted(glob.glob(os.path.join(self.input_folder, "depth_noise",
+                                                         "*.exr")))
+        self.n_img = len(self.color_paths)
+        # identity poses, as the reference gives (the ATE aligns them)
+        self.poses = [np.eye(4, dtype=np.float32) for _ in range(self.n_img)]
+
+
+class TUMRGBD(BaseDataset):
+    """TUM RGB-D: rgb / depth / ground truth associated by timestamp,
+    thinned to at most 32 frames a second, poses relative to the first."""
+
+    def __init__(self, cfg, args=None, scale=1.0):
+        super().__init__(cfg, args, scale)
+        self.color_paths, self.depth_paths, self.poses = self._loadtum(
+            self.input_folder, frame_rate=32)
+        self.n_img = len(self.color_paths)
+
+    @staticmethod
+    def _parse_list(filepath, skiprows=0):
+        return np.loadtxt(filepath, delimiter=" ", dtype=np.str_, skiprows=skiprows)
+
+    @staticmethod
+    def _associate(t_img, t_depth, t_pose, max_dt=0.08):
+        associations = []
+        for i, t in enumerate(t_img):
+            j = np.argmin(np.abs(t_depth - t))
+            k = np.argmin(np.abs(t_pose - t))
+            if np.abs(t_depth[j] - t) < max_dt and np.abs(t_pose[k] - t) < max_dt:
+                associations.append((i, j, k))
+        return associations
+
+    def _loadtum(self, datapath, frame_rate=-1):
+        pose_list = os.path.join(datapath, "groundtruth.txt")
+        if not os.path.isfile(pose_list):
+            pose_list = os.path.join(datapath, "pose.txt")
+        image_data = self._parse_list(os.path.join(datapath, "rgb.txt"))
+        depth_data = self._parse_list(os.path.join(datapath, "depth.txt"))
+        pose_data = self._parse_list(pose_list, skiprows=1)
+        pose_vecs = pose_data[:, 1:].astype(np.float64)
+
+        t_img = image_data[:, 0].astype(np.float64)
+        t_depth = depth_data[:, 0].astype(np.float64)
+        t_pose = pose_data[:, 0].astype(np.float64)
+        associations = self._associate(t_img, t_depth, t_pose)
+
+        indices = [0]
+        for i in range(1, len(associations)):
+            t0 = t_img[associations[indices[-1]][0]]
+            t1 = t_img[associations[i][0]]
+            if t1 - t0 > 1.0 / frame_rate:
+                indices.append(i)
+
+        images, depths, poses = [], [], []
+        inv_pose = None
+        for ix in indices:
+            i, j, k = associations[ix]
+            images.append(os.path.join(datapath, str(image_data[i, 1])))
+            depths.append(os.path.join(datapath, str(depth_data[j, 1])))
+            c2w = self._pose_from_quat(pose_vecs[k])
+            if inv_pose is None:
+                inv_pose = np.linalg.inv(c2w)
+                c2w = np.eye(4)
+            else:
+                c2w = inv_pose @ c2w
+            poses.append(_flip_yz(c2w).astype(np.float32))
+        return images, depths, poses
+
+    @staticmethod
+    def _pose_from_quat(pvec):
+        from scipy.spatial.transform import Rotation
+
+        pose = np.eye(4)
+        pose[:3, :3] = Rotation.from_quat(pvec[3:]).as_matrix()
+        pose[:3, 3] = pvec[:3]
+        return pose
 
 
 dataset_dict: Dict[str, type] = {
     "replica": Replica,
     "replica_event": ReplicaEvent,
+    "rpg": RPG,
+    "rpg_event": RPGEvent,
+    "rpg_event_dense": RPGEventDense,
+    "azure": Azure,
+    "scannet": ScanNet,
+    "cofusion": CoFusion,
+    "tumrgbd": TUMRGBD,
 }
-# the JAX package's other readers
-NOT_PORTED = ("rpg", "rpg_event", "rpg_event_dense", "azure", "scannet", "cofusion", "tumrgbd")
 
 
 def get_dataset(cfg, args=None, scale: float = 1.0) -> BaseDataset:
     name = cfg["dataset"]
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"dataset {name!r}: {LATER}")
     if name not in dataset_dict:
         raise ValueError(f"unknown dataset {name!r}")
     return dataset_dict[name](cfg, args, scale)

@@ -12,9 +12,9 @@ the output directory. The run is on the CUDA device unless ``--device cpu``
 asks for the CPU. ``--imap`` runs iMAP, its configuration over
 ``configs/imap.yaml`` (``--nice``, the default, over ``configs/nice_slam.yaml``).
 
-Not ported yet, and refused before the first frame: ``--viz_port`` and a
-configuration with ``enable_vis: true`` (the visualiser, ROADMAP Queue 1
-item 4; set ``enable_vis: false``).
+``enable_vis: true`` (the shipped default) writes the visualiser's panels
+under the output directory. Not ported yet, and refused before the first
+frame: ``--viz_port``, the interactive viewer (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations

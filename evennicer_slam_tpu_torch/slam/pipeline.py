@@ -25,9 +25,17 @@ plain ops (the fused kernels cover the NICE trio only); a steady mapping
 call is three calls of ``iters // 3`` iterations, and the sequence's end
 has no colour refinement.
 
-Not ported yet, and raising ``NotImplementedError`` before the first frame:
-``sync_method: loose|free``, ``parallel.map_devices`` and data parallelism
-(ROADMAP Queue 1 item 5) and the visualiser (``enable_vis``, item 4).
+``enable_vis`` (the shipped default) writes the visualiser's panels
+(``utils/visualizer.py``): tracking panels every ``tracking.vis_freq``-th
+frame, mapping panels inside every ``mapping.vis_freq``-th frame's mapping
+call, none of those for an output directory named ``Demo``.
+
+``sync_method: loose|free`` run the strict schedule on one device group, as
+the JAX package's do there (its ``parallel/sharding.py::concurrent_submeshes``
+finds no second group). What the JAX package runs concurrently, loose/free
+with ``parallel.map_devices`` k > 0 and at least k + 1 devices, and data
+parallelism raise ``NotImplementedError`` before the first frame (ROADMAP
+Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -45,19 +53,22 @@ from evennicer_slam_tpu_torch.data.datasets import get_dataset
 from evennicer_slam_tpu_torch.data.prefetch import PrefetchingReader
 from evennicer_slam_tpu_torch.mesh.mesher import Mesher
 from evennicer_slam_tpu_torch.models.eventnet import (
+    inference_event,
     init_eventnet,
     load_eventnet_npz,
     load_eventnet_torch,
 )
 from evennicer_slam_tpu_torch.models.grids import init_grids
 from evennicer_slam_tpu_torch.models.pretrained import load_pretrained_decoders
-from evennicer_slam_tpu_torch.render.renderer import RenderSettings
+from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from evennicer_slam_tpu_torch.render.renderer import Renderer, RenderSettings
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig
-from evennicer_slam_tpu_torch.slam.tracker import Tracker, TrackerConfig
+from evennicer_slam_tpu_torch.slam.tracker import Tracker, TrackerConfig, esim_predict
 from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
 from evennicer_slam_tpu_torch.utils.telemetry import MetricsLogger, PhaseTimers
+from evennicer_slam_tpu_torch.utils.visualizer import Visualizer
 
 ROADMAP_CONCURRENCY = "ROADMAP Queue 1 item 5 (concurrency and multi-GPU)"
 # steady mapping calls the host may run ahead of the device
@@ -73,23 +84,27 @@ def load_scene_bound(cfg) -> np.ndarray:
     return bound.astype(np.float32)
 
 
-def check_supported(cfg: Dict[str, Any]) -> None:
+def check_supported(cfg: Dict[str, Any], n_devices: Optional[int] = None) -> None:
     """Raise ``NotImplementedError``, naming the ROADMAP item that ports it,
-    for a configuration this port cannot run yet."""
-    sync = cfg.get("sync_method", "strict")
-    if sync != "strict":
-        raise NotImplementedError(f"sync_method {sync!r}: only 'strict' is ported; "
-                                  f"loose/free come with {ROADMAP_CONCURRENCY}")
+    for a configuration this port cannot run yet: the cases in which the
+    JAX package runs the tracker and the mapper concurrently (its
+    ``concurrent_submeshes``: ``sync_method`` loose or free with
+    ``parallel.map_devices`` k > 0, ``'auto'`` meaning max(1, n // 4), and
+    at least k + 1 of the ``n_devices`` devices; default: the CUDA devices),
+    and data parallelism. Otherwise loose and free run the strict schedule."""
     par = cfg.get("parallel", {})
-    if par.get("map_devices", 0):
-        raise NotImplementedError(f"parallel.map_devices: {ROADMAP_CONCURRENCY}")
+    if cfg.get("sync_method", "strict") in ("loose", "free"):
+        n = torch.cuda.device_count() if n_devices is None else n_devices
+        want = par.get("map_devices", 0)
+        k = max(1, n // 4) if want == "auto" else int(want or 0)
+        if k > 0 and n >= k + 1:
+            raise NotImplementedError(
+                f"sync_method {cfg['sync_method']!r} with parallel.map_devices {want} on "
+                f"{n} devices runs the tracker and the mapper concurrently: "
+                f"{ROADMAP_CONCURRENCY}")
     dp = par.get("data_parallel", "auto")
     if dp != "auto" and int(dp) > 1:
         raise NotImplementedError(f"parallel.data_parallel {dp}: {ROADMAP_CONCURRENCY}")
-    if cfg.get("enable_vis", True):
-        raise NotImplementedError(
-            "enable_vis: the visualiser is not ported (ROADMAP Queue 1 item 4); "
-            "set enable_vis: false, as bench.py does")
 
 
 def _seeds(seed: int, n: int):
@@ -103,8 +118,8 @@ class EvenNICERSLAM:
     the CUDA device."""
 
     def __init__(self, cfg: Dict[str, Any], args=None, nice: bool = True, device=None):
-        check_supported(cfg)
         self.device = resolve_device(device)
+        check_supported(cfg, torch.cuda.device_count() if self.device.type == "cuda" else 1)
         self.cfg = cfg
         self.nice = nice
         self.coarse = cfg["coarse"] and nice
@@ -190,6 +205,8 @@ class EvenNICERSLAM:
         self._inflight_maps: deque = deque()
         self.timers = PhaseTimers()
         self._mesher = None
+        self._renderer = None
+        self._vis: Dict[str, Visualizer] = {}
 
         # event divergence guard: the tracker emits the predicted-vs-GT event
         # correlation each frame; if it stays below guard_corr_threshold for
@@ -222,6 +239,54 @@ class EvenNICERSLAM:
             self._mesher = Mesher(self.cfg, self.cam, self.settings, self.bound,
                                   device=self.device)
         return self._mesher
+
+    @property
+    def renderer(self) -> Renderer:
+        """Whole-image renderer of the visualiser, built on first use from
+        the pipeline's own render settings (the fused decode off, as in the
+        JAX package: only the tracker's settings turn it on)."""
+        if self._renderer is None:
+            c = self.cam
+            self._renderer = Renderer(c.H, c.W, c.fx, c.fy, c.cx, c.cy, self.bound,
+                                      self.settings, device=self.device)
+        return self._renderer
+
+    def _get_vis(self, which: str) -> Visualizer:
+        """The tracking or mapping visualiser. Under an output directory
+        named ``Demo`` the tracking panels go to ``vis/``; the mapping
+        visualiser fires every ``2 * vis_inside_freq - 1`` iterations ("to
+        see start and end", as the reference has it)."""
+        if which not in self._vis:
+            if which == "tracking":
+                t = self.cfg["tracking"]
+                sub = "vis" if "Demo" in self.output else "tracking_vis"
+                freq, inside = t.get("vis_freq", 50), 1
+            else:
+                m = self.cfg["mapping"]
+                sub = "mapping_vis"
+                freq, inside = m.get("vis_freq", 50), max(1, 2 * m.get("vis_inside_freq", 25) - 1)
+            self._vis[which] = Visualizer(freq, inside, os.path.join(self.output, sub),
+                                          self.renderer, self.verbose)
+        return self._vis[which]
+
+    def _predict_event_for_vis(self, idx: int, gt_depth):
+        """The low-resolution GT event integral and the predicted events of
+        frame ``idx`` for the tracking panels, with the tracker's predictor
+        (ESIM or the UNet)."""
+        tr = self.tracker
+        gt_ev_lo = resize_nearest(tr.gt_event_integrate, tr.lo_hw)
+        prev_fn = resize_nearest if self.t_cfg.prev_resize == "nearest" else resize_bilinear
+        prev_lo = prev_fn(tr.pre_gt_color, tr.lo_hw)
+        pose = torch.as_tensor(self._pose_np(idx)[:3]).to(self.device)
+        with torch.no_grad():
+            _, _, cur_lo = self.renderer.render_img_rescale(
+                self.decoders, self.grids, pose, "color", gt_depth=gt_depth,
+                scale_factor=self.t_cfg.scale_factor)
+            if self.t_cfg.predictor == "esim":
+                pred, _ = esim_predict(prev_lo, cur_lo, self.t_cfg.esim_gain)
+            else:
+                pred, _ = inference_event(self.eventnet, prev_lo, cur_lo)
+        return gt_ev_lo.cpu().numpy(), pred.cpu().numpy()
 
     # ------------------------------------------------------------------
     # poses: device-backed, read back in one copy on access
@@ -406,6 +471,17 @@ class EvenNICERSLAM:
         else:
             outer, num_iters, lr_factor = 3, m.iters // 3, m.lr_factor
 
+        # the mapping panels, every vis_inside_freq iterations inside the
+        # call (none for a Demo output directory)
+        vis_cb, vis_inside = None, 0
+        if self.cfg.get("enable_vis", True) and "Demo" not in self.output:
+            mvis = self._get_vis("mapping")
+            if mvis.should_vis(idx, 0):
+                vis_inside = mvis.inside_freq
+
+                def vis_cb(it, g, d, cams):
+                    mvis.vis(idx, it, frame.depth, frame.color, self._pose_np(idx), g, d)
+
         mapper = self.mapper
         mapper.update_ba_state()
         # the final colour refinement doubles the mapper's window
@@ -417,7 +493,8 @@ class EvenNICERSLAM:
                 num_iters, lr_factor, idx, frame.color, frame.depth, gt_event_int,
                 cur_c2w, pre_gt_color=self.pre_gt_color_mapper,
                 color_refine=color_refine, seed=idx * 97 + outer_it,
-                grids=self.grids, decoders=self.decoders, cur_images_dev=images_dev)
+                grids=self.grids, decoders=self.decoders, cur_images_dev=images_dev,
+                vis_callback=vis_cb, vis_inside_freq=vis_inside)
             if new_c2w is not None:
                 cur_c2w = new_c2w
                 self._set_pose(idx, new_c2w)
@@ -478,6 +555,14 @@ class EvenNICERSLAM:
         dev_rec["mapping/loss"] = self.mapper.last_loss
         self._metric_queue.append(({"frame": idx}, dev_rec))
         self._flush_metrics()
+        if idx > 0 and self.cfg.get("enable_vis", True):
+            vis = self._get_vis("tracking")
+            if vis.should_vis(idx, 0):
+                gt_ev_lo = pred_ev = None
+                if self.use_events and self.tracker.pre_gt_color is not None:
+                    gt_ev_lo, pred_ev = self._predict_event_for_vis(idx, gt_depth)
+                vis.vis(idx, 0, gt_depth, gt_color, self._pose_np(idx), self.grids,
+                        self.decoders, gt_event=gt_ev_lo, pred_event=pred_ev)
 
         mapped = False
         if idx != 0 and idx % self.m_cfg.every_frame == 0:

@@ -3,8 +3,8 @@
 
 Horn's closed-form SVD alignment between estimated and ground-truth
 trajectories, reporting RMSE/mean/median/std/min/max in metres, plus a
-trajectory plot. The plot needs matplotlib, imported only when a plot is
-asked for; ``plot=None`` needs none.
+trajectory plot: a PNG drawn in numpy (the JAX package's uses matplotlib;
+this one has no axis labels or legend). ``plot=None`` draws none.
 
 Usage:
     python -m evennicer_slam_tpu_torch.tools.eval_ate <config.yaml> [--output DIR] [--no_plot]
@@ -66,20 +66,46 @@ def evaluate_ate(
     return results
 
 
+PLOT_PX = 540  # side of the plot's square canvas
+PLOT_MARGIN = 30
+
+
+def _draw_polyline(canvas: np.ndarray, px: np.ndarray, colour) -> None:
+    """Draw the polyline through pixel positions ``px`` ``[N, 2]`` (x, y),
+    two pixels wide."""
+    for a, b in zip(px[:-1], px[1:]):
+        n = int(np.ceil(np.abs(b - a).max())) + 1
+        t = np.linspace(0.0, 1.0, n)[:, None]
+        pts = np.rint(a + (b - a) * t).astype(np.int64)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                y = np.clip(pts[:, 1] + dy, 0, canvas.shape[0] - 1)
+                x = np.clip(pts[:, 0] + dx, 0, canvas.shape[1] - 1)
+                canvas[y, x] = colour
+
+
 def _plot_traj(est_aligned: np.ndarray, gt: np.ndarray, path: str):
-    import matplotlib
+    """The x-y trajectories as a PNG (numpy, no plotting library): ground
+    truth in black, the aligned estimate in blue, one scale for both axes,
+    framed by a grey box."""
+    from evennicer_slam_tpu_torch.data.png import write_png
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    xy = np.concatenate([gt[:, :2], est_aligned[:, :2]])
+    lo, hi = xy.min(axis=0), xy.max(axis=0)
+    span = max(float((hi - lo).max()), 1e-9)
+    inner = PLOT_PX - 2 * PLOT_MARGIN
+    centre = (lo + hi) / 2
 
-    fig, ax = plt.subplots(figsize=(6, 6))
-    ax.plot(gt[:, 0], gt[:, 1], "-", color="black", label="ground truth")
-    ax.plot(est_aligned[:, 0], est_aligned[:, 1], "-", color="blue", label="estimated")
-    ax.legend()
-    ax.set_xlabel("x [m]")
-    ax.set_ylabel("y [m]")
-    fig.savefig(path, dpi=90)
-    plt.close(fig)
+    def to_px(p):
+        q = (p[:, :2] - centre) / span * inner
+        return np.stack([PLOT_PX / 2 + q[:, 0], PLOT_PX / 2 - q[:, 1]], axis=1)
+
+    canvas = np.full((PLOT_PX, PLOT_PX, 3), 255, np.uint8)
+    m0, m1 = PLOT_MARGIN // 2, PLOT_PX - PLOT_MARGIN // 2
+    canvas[m0:m1, [m0, m1]] = canvas[[m0, m1], m0:m1] = 160
+    _draw_polyline(canvas, to_px(gt), (0, 0, 0))
+    _draw_polyline(canvas, to_px(est_aligned), (0, 0, 255))
+    write_png(path, canvas)
 
 
 def convert_poses(c2w_list: np.ndarray, scale: float = 1.0):
@@ -121,7 +147,7 @@ def main(argv=None):
     parser.add_argument("--nice", dest="nice", action="store_true", default=True)
     parser.add_argument("--imap", dest="nice", action="store_false")
     parser.add_argument("--no_plot", action="store_true",
-                        help="skip the trajectory plot (it needs matplotlib)")
+                        help="skip the trajectory plot")
     args = parser.parse_args(argv)
     cfg = load_config(args.config, default_config_path(args.nice))
     output = args.output or cfg["data"]["output"]

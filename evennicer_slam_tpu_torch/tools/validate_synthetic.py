@@ -7,9 +7,8 @@ Runs the port the way a user would on Replica — a sequence through
 reference defines: ATE RMSE, 3D mesh accuracy/completion/ratio, the
 completion over the observed ground-truth surface, and the
 reference-protocol 2D depth-L1 against the scene's analytic ground-truth
-mesh. The run sets ``enable_vis: false``: the visualiser is not ported
-(ROADMAP Queue 1 item 4) and needs matplotlib, as does the trajectory
-plot (``--no_plot`` skips it).
+mesh. The run writes the visualiser's panels (``enable_vis: true``, as
+the JAX tool sets it) and the trajectory plot (``--no_plot`` skips it).
 
 Prints one JSON line per metric block; exits nonzero if anything is missing.
 
@@ -29,9 +28,7 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fi
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description=__doc__.split("\n")[0],
-        epilog="The run sets enable_vis: false (the visualiser is not ported and "
-               "needs matplotlib).")
+        description=__doc__.split("\n")[0])
     parser.add_argument("--frames", type=int, default=300)
     parser.add_argument("--hw", type=int, nargs=2, default=(680, 1200))
     parser.add_argument("--events", action="store_true")
@@ -87,7 +84,7 @@ def main(argv=None):
                              " real-data walkthroughs; denser keyframes keep"
                              " the overlap selector anchored)")
     parser.add_argument("--no_plot", action="store_true",
-                        help="skip the trajectory plot (it needs matplotlib)")
+                        help="skip the trajectory plot")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the run (default cuda; cpu for tests)")
     args = parser.parse_args(argv)
@@ -143,7 +140,7 @@ def main(argv=None):
     update_recursive(cfg, frag)
     overrides = {
         "verbose": False,
-        "enable_vis": False,
+        "enable_vis": True,
         "mapping": {"ckpt_freq": max(1, args.frames // 2), "mesh_freq": 50},
         "meshing": {"eval_rec": True},
         "data": {"output": os.path.join(args.scene, "out")},

@@ -1,8 +1,8 @@
 """The port's command line (``evennicer_slam_tpu_torch/run.py``) on the CPU:
 a tiny scene (36x48, a handful of frames) from a config file to checkpoints,
 the final meshes and the trajectory error of the checkpoint; ``--resume``;
-``--imap`` and the along-normal mesh colours; the options that are not
-ported yet, refused before any frame."""
+``--imap`` and the along-normal mesh colours; ``enable_vis``; ``--viz_port``,
+not ported yet, refused before any frame."""
 
 import os
 import subprocess
@@ -87,11 +87,24 @@ def test_cli_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
     ([], {"enable_vis": True}, "enable_vis: false"),
 ], ids=["viz_port", "enable_vis"])
 def test_unported_options_raise_before_any_frame(tmp_path, flags, changes, match):
+    """``--viz_port`` (the viewer) is still refused before any frame, with
+    nothing written. ``enable_vis: true``, refused until the visualiser was
+    ported, now runs to its end and writes the tracking panels of frame 2
+    (``tracking.vis_freq`` 2 here) and the mapping panels of frame 0."""
+    if changes.get("enable_vis"):
+        changes = dict(changes, tracking={"vis_freq": 2, "iters": 2, "pixels": 40,
+                                          "ignore_edge_W": 4, "ignore_edge_H": 4})
     cfg = write_config(tmp_path, 3, **changes)
     out = str(tmp_path / "out")
-    with pytest.raises(NotImplementedError, match=match):
-        port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
-    assert not os.path.exists(out)  # nothing run, nothing written
+    if not changes.get("enable_vis"):
+        with pytest.raises(NotImplementedError, match=match):
+            port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
+        assert not os.path.exists(out)  # nothing run, nothing written
+        return
+    est = port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
+    assert np.isfinite(est).all()
+    assert os.listdir(os.path.join(out, "tracking_vis")) == ["00002_0000.jpg"]
+    assert "00000_0000.jpg" in os.listdir(os.path.join(out, "mapping_vis"))
 
 
 @pytest.mark.parametrize("flags,changes", [

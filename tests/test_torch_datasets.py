@@ -128,20 +128,34 @@ def test_resize_matches_cv2_on_float_images(out_hw):
 
 
 def test_what_is_not_ported_raises_and_names_its_roadmap_item(scenes, tmp_path):
+    """What this test once refused (the other families, ``cam.distortion``,
+    JPEG frames) now reads: the port's ``dataset_dict`` has every family of
+    the JAX package's; a distorted camera and JPEG colour frames give the
+    JAX reader's frames (``test_torch_dataset_families.py`` holds every
+    family). An unknown family and a short event folder still raise."""
     cfg = _cfg(scenes["port"])
-    for name in td.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-            td.get_dataset(dict(cfg, dataset=name))
+    assert set(td.dataset_dict) == set(jd.dataset_dict)
+    assert not hasattr(td, "NOT_PORTED")
     with pytest.raises(ValueError, match="unknown dataset"):
         td.get_dataset(dict(cfg, dataset="nope"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        td.get_dataset(_cfg(scenes["port"], distortion=[0.1, 0.0, 0.0, 0.0, 0.0]))
+    distorted = _cfg(scenes["port"], distortion=[0.1, 0.0, 0.0, 0.0, 0.0])
+    for i in (0, 2):
+        _assert_frames_equal(td.get_dataset(distorted)[i], jd.get_dataset(distorted)[i],
+                             f"distorted camera, frame {i}")
     jpg = copy.deepcopy(cfg)
     jpg["data"]["input_folder"] = str(tmp_path)
     os.makedirs(tmp_path / "results")
-    cv2.imwrite(str(tmp_path / "results" / "frame000000.jpg"), np.zeros((4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="JPEG.*ROADMAP Queue 1 item 4"):
-        td.get_dataset(dict(jpg, dataset="replica"))
+    src = scenes["port"]["data"]["input_folder"]
+    for i in range(SCENE["n_frames"]):
+        rgb = cv2.imread(os.path.join(src, "results", f"frame{i:06d}.png"))
+        cv2.imwrite(str(tmp_path / "results" / f"frame{i:06d}.jpg"), rgb)
+        os.link(os.path.join(src, "results", f"depth{i:06d}.png"),
+                tmp_path / "results" / f"depth{i:06d}.png")
+    os.link(os.path.join(src, "traj.txt"), tmp_path / "traj.txt")
+    jpg["dataset"] = "replica"
+    t_reader, j_reader = td.get_dataset(jpg), jd.get_dataset(jpg)
+    assert t_reader.color_paths[0].endswith(".jpg") and len(t_reader) == SCENE["n_frames"]
+    _assert_frames_equal(t_reader[1], j_reader[1], "JPEG frames")
     short = copy.deepcopy(cfg)
     short["data"]["event_folder"] = str(tmp_path / "results")
     with pytest.raises(ValueError, match="event frames"):

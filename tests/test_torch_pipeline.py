@@ -193,6 +193,15 @@ def test_first_mapping_call_fits_the_coarse_grid_and_cpu_tracking_is_plain(tmp_p
     assert slam.mapper.keyframes.indices == [0]
 
 
+@pytest.fixture(scope="module")
+def strict_three(tmp_path_factory):
+    """Three frames of the strict schedule on the CPU: the trajectory."""
+    tmp = tmp_path_factory.mktemp("strict")
+    cfg = tiny_cfg(str(tmp / "scene"), 3, events=False)
+    cfg["data"]["output"] = str(tmp / "out")
+    return EvenNICERSLAM(cfg, device="cpu").run(mesh=False, checkpoint=False).copy()
+
+
 @pytest.mark.parametrize("change,item", [
     ({"sync_method": "loose"}, "item 5"),
     ({"sync_method": "free"}, "item 5"),
@@ -200,12 +209,42 @@ def test_first_mapping_call_fits_the_coarse_grid_and_cpu_tracking_is_plain(tmp_p
     ({"parallel": {"data_parallel": 2}}, "item 5"),
     ({"enable_vis": True}, "item 4"),
 ])
-def test_unported_options_raise_before_the_first_frame(tmp_path, change, item):
-    cfg = tiny_cfg(str(tmp_path / "scene"), 2, events=False)
+def test_unported_options_raise_before_the_first_frame(tmp_path, strict_three, change, item):
+    """Of the five options this test once saw refused, data parallelism
+    still raises before the first frame, naming its ROADMAP item. On one
+    device group ``sync_method: loose|free`` and ``parallel.map_devices``
+    run the strict schedule, as the JAX package's pipeline does there
+    (``check_supported`` raises only where the JAX package would go
+    concurrent): three frames with poses bit-equal to the strict run's.
+    ``enable_vis`` runs and writes the visualiser's panels."""
+    cfg = tiny_cfg(str(tmp_path / "scene"), 3, events=False)
     cfg["data"]["output"] = str(tmp_path / "out")
     cfg.update(change)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        EvenNICERSLAM(cfg, device="cpu")
+    if "data_parallel" in change.get("parallel", {}):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
+            EvenNICERSLAM(cfg, device="cpu")
+        return
+    if change.get("enable_vis"):
+        cfg["tracking"]["vis_freq"] = cfg["mapping"]["vis_freq"] = 2
+    est = EvenNICERSLAM(cfg, device="cpu").run(mesh=False, checkpoint=False)
+    np.testing.assert_array_equal(est, strict_three)
+    if change.get("enable_vis"):
+        out = cfg["data"]["output"]
+        assert os.listdir(os.path.join(out, "tracking_vis")) == ["00002_0000.jpg"]
+        assert "00000_0000.jpg" in os.listdir(os.path.join(out, "mapping_vis"))
+
+
+def test_loose_follows_the_jax_packages_loose_run(tmp_path):
+    """``sync_method: loose`` on one device group in both packages (the JAX
+    package falls back to the strict schedule there): the port's trajectory
+    from the JAX run's initial state and draws within POSE_MM of the JAX
+    run's, as the strict runs are."""
+    jax_run = run_jax(str(tmp_path), N_FRAMES, events=False, sync_method="loose")
+    assert not jax_run["slam"].concurrent
+    port = port_pipeline(str(tmp_path), "loose", N_FRAMES, False, jax_run["state"],
+                         sync_method="loose")
+    apart = mm_apart(port.run(mesh=False), jax_run["est"])
+    assert apart[0] == 0.0 and apart.max() <= POSE_MM, apart
 
 
 def test_nice_false_builds_and_maps_the_imap_model(tmp_path):
