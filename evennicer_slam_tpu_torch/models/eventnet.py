@@ -16,6 +16,7 @@ rendered input image.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -58,10 +59,50 @@ def _double_conv(x, p):
     return torch.relu(_bn(_conv(x, p["w2"]), p["bn2"]))
 
 
+@functools.lru_cache(maxsize=64)
+def _upsample_matrix(n_in: int, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """``[2 n_in, n_in]``: the weights of a x2 linear upsample with
+    align_corners=True, the source coordinate ``i (n_in - 1) / (2 n_in - 1)``
+    computed in float32 as ``F.interpolate`` computes it. A constant table,
+    made once per size, device and dtype."""
+    n_out = 2 * n_in
+    src = torch.arange(n_out, dtype=torch.float32) * ((n_in - 1) / (n_out - 1))
+    i0 = src.floor().long().clamp(max=n_in - 1)
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    frac = (src - i0)[:, None]
+    return ((1 - frac) * F.one_hot(i0, n_in) + frac * F.one_hot(i1, n_in)).to(device, dtype)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """Bilinear x2 upsample of NCHW ``x``, align_corners=True: the forward is
+    ``F.interpolate``'s; the backward is its transpose written as two matrix
+    products, ``A_h^T @ g @ A_w``. ``F.interpolate``'s own CUDA backward adds
+    with atomics, so two runs of a gradient through it differ in the last
+    bits; a product gives the same bits in every run (PERF.md, PR 10)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c, h2, w2 = g.shape
+        h, w = h2 // 2, w2 // 2
+        gx = g.reshape(n * c * h2, w2) @ _upsample_matrix(w, g.device, g.dtype)
+        gx = _upsample_matrix(h, g.device, g.dtype).T @ gx.reshape(n * c, h2, w)
+        return gx.reshape(n, c, h, w)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """EventNet's x2 bilinear upsample (align_corners=True) with a backward
+    that is the same in every run (:class:`_Upsample2x`)."""
+    return _Upsample2x.apply(x)
+
+
 def _up(x1, x2, p):
     """Bilinear x2 upsample (align_corners=True), zero-pad to the skip's
     size, concat [skip, upsampled], DoubleConv."""
-    up = F.interpolate(x1, scale_factor=2, mode="bilinear", align_corners=True)
+    up = upsample2x(x1)
     dy, dx = x2.shape[2] - up.shape[2], x2.shape[3] - up.shape[3]
     up = F.pad(up, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
     return _double_conv(torch.cat([x2, up], dim=1), p)

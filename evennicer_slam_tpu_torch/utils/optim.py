@@ -91,15 +91,18 @@ def adam_update(
     (``adam_init(params, per_leaf_t=True)``); each active leaf advances its
     own step count."""
 
-    def step(g, p, m, v, t, lr):
-        t = t + 1
-        tf = t.to(torch.float32)
-        c1 = 1.0 - b1 ** tf
-        c2 = 1.0 - b2 ** tf
+    def moments(g, p, m, v, c1, c2, lr):
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g
-        p = p - lr * (m / c1) / (torch.sqrt(v / c2) + eps)
-        return p, m, v, t
+        return p - lr * (m / c1) / (torch.sqrt(v / c2) + eps), m, v
+
+    def corrections(t):
+        tf = t.to(torch.float32)
+        return 1.0 - b1 ** tf, 1.0 - b2 ** tf
+
+    def step(g, p, m, v, t, lr):
+        t = t + 1
+        return (*moments(g, p, m, v, *corrections(t), lr), t)
 
     if _is_scalar_lr(lr_tree):
         uniform = lr_tree
@@ -115,9 +118,12 @@ def adam_update(
         out = tree_map(upd, active, grads, params, state.m, state.v, state.t, lr_tree)
         return unzip(out, 0), AdamState(unzip(out, 1), unzip(out, 2), unzip(out, 3))
 
-    out = tree_map(lambda g, p, m, v, lr: step(g, p, m, v, state.t, lr),
+    # one step count for every leaf: its bias corrections are made once
+    t = state.t + 1
+    c1, c2 = corrections(t)
+    out = tree_map(lambda g, p, m, v, lr: (*moments(g, p, m, v, c1, c2, lr), t),
                    grads, params, state.m, state.v, lr_tree)
-    return unzip(out, 0), AdamState(unzip(out, 1), unzip(out, 2), state.t + 1)
+    return unzip(out, 0), AdamState(unzip(out, 1), unzip(out, 2), t)
 
 
 def broadcast_group_lrs(labels: Any, group_lrs: Dict[str, Any]) -> Any:

@@ -42,8 +42,9 @@ def require_on(device: torch.device, *tensors: torch.Tensor) -> None:
 
 
 def setup_torch(verbose: bool = True) -> dict:
-    """Pin float32 arithmetic to full precision on the card, and let cuDNN
-    choose its convolution algorithms by measurement.
+    """Pin float32 arithmetic to full precision on the card, let cuDNN
+    choose its convolution algorithms by measurement, among the
+    deterministic ones.
 
     A float32 matrix product already runs in full float32 by default, but a
     float32 convolution goes through cuDNN in TF32 (about three decimal
@@ -52,20 +53,27 @@ def setup_torch(verbose: bool = True) -> dict:
     several of EventNet's 3x3 convolutions to FFT algorithms that are far
     slower at a 102x180 image than its plain implicit-GEMM ones;
     ``cudnn.benchmark`` makes it time the candidates once per shape and keep
-    the fastest (all of them float32; PERF.md has the times). The settings
-    are reported."""
+    the fastest (all of them float32; PERF.md has the times). Left free,
+    that choice falls on data-gradient and weight-gradient algorithms that
+    add with atomics, and two runs of EventNet's gradient differ in the last
+    bits; ``cudnn.deterministic`` keeps the choice to the algorithms that do
+    not, so two runs in one process give the same bits. The timing is made
+    once a process, and another process may time its way to another
+    deterministic algorithm (PERF.md, PR 10). The settings are reported."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.deterministic = True
     state = {
         "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
         "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
         "cudnn_benchmark": torch.backends.cudnn.benchmark,
+        "cudnn_deterministic": torch.backends.cudnn.deterministic,
     }
     if verbose:
         print(
             "setup_torch: float32 matmul and convolutions run without TF32; "
-            f"cuDNN picks convolution algorithms by timing them ({state})",
+            f"cuDNN picks deterministic convolution algorithms by timing them ({state})",
             flush=True,
         )
     return state

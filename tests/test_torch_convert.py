@@ -165,7 +165,8 @@ def test_every_port_module_imports_here():
                 "mesh.trimesh_lite", "mesh.marching", "mesh.raster", "mesh.mesher", "run",
                 "tools.eval_ate", "tools.eval_recon", "tools.cull_mesh",
                 "tools.validate_synthetic", "data.jpeg", "data.undistort", "data.exr",
-                "utils.visualizer"):
+                "utils.visualizer", "models.eventnet_train", "tools.train_eventnet",
+                "tools.predict_event", "tools.event_ablation", "tools.prep_own_data"):
         assert f"evennicer_slam_tpu_torch.{new}" in names
     for name in names:
         __import__(name)
@@ -291,7 +292,7 @@ def test_setup_torch_turns_tf32_off_and_says_so(capsys):
     torch.backends.cudnn.allow_tf32 = True
     state = runtime.setup_torch()
     assert state == {"matmul_allow_tf32": False, "cudnn_allow_tf32": False,
-                     "cudnn_benchmark": True}
+                     "cudnn_benchmark": True, "cudnn_deterministic": True}
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert "TF32" in capsys.readouterr().out

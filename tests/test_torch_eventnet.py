@@ -128,3 +128,28 @@ def test_inference_event_and_input_gradient(nets):
     (ev_t ** 2).sum().backward()
     rel = np.linalg.norm(cur.grad.numpy() - g_want) / np.linalg.norm(g_want)
     assert rel < 1e-3, rel
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 6, 11), (1, 4, 13, 1), (1, 2, 1, 5), (4, 8, 25, 45)])
+def test_upsample2x_is_f_interpolate(shape):
+    """EventNet's x2 upsample: ``F.interpolate(bilinear, align_corners=True)``
+    forward (the same bits), its backward written as two matrix products (the
+    same bits in every run on the card) against ``F.interpolate``'s own
+    backward: float32 sums in another order (atol 2e-6)."""
+    rng = np.random.default_rng(3)
+    x = t(rng.normal(size=shape))
+    gy = t(rng.normal(size=(*shape[:2], 2 * shape[2], 2 * shape[3])))
+    outs = []
+    for up in (te.upsample2x, lambda v: torch.nn.functional.interpolate(
+            v, scale_factor=2, mode="bilinear", align_corners=True)):
+        xi = x.clone().requires_grad_(True)
+        y = up(xi)
+        (g,) = torch.autograd.grad(y, xi, gy)
+        outs.append((y.detach(), g))
+    (y, g), (y_ref, g_ref) = outs
+    assert torch.equal(y, y_ref)
+    assert_close(g, g_ref.numpy(), 2e-6)
+    # the weights' table: each row sums to one, two taps at most
+    a = te._upsample_matrix(shape[2], torch.device("cpu"))
+    assert_close(a.sum(1), np.ones(2 * shape[2]), 1e-6)
+    assert int((a != 0).sum(1).max()) <= 2
