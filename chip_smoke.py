@@ -84,7 +84,23 @@ bound):
     its loss on 32 held-out triples below the untrained net's and beside the
     shipped net's, ``A_dead_reckoning`` and ``C_events_reference`` tracked,
     C's ATE held to ``ATE_BENCH_BAR``). One cut: the first mapping call of
-    each of its three pipeline runs has 300 iterations, not 1,500.
+    each of its three pipeline runs has 300 iterations, not 1,500;
+  - the viewer and device groups (phase 17): ``sync_method: loose``, then
+    ``free``, over frames 0-15 of phase 12's room on two slots of the card
+    (``devices=[cuda:0] * 2``, ``parallel.map_devices`` 1: the map group one
+    slot, the track group the other; on one card that shows the schedule,
+    not overlap between cards), the lag bound, the mapping calls, the ATE
+    and the host seconds spent enqueuing mapping calls; one event-tracked
+    frame and one steady mapping call with their rays split over 2 and 3
+    slots against 1 (``parallel/sharding.py``: pose, loss and leaf gaps,
+    the decode launched once a slot); the browser viewer
+    (``tools/viz_server.py``) on phase 12's output over HTTP, ``tools/viz.py``'s
+    replay frames and GIF; and ``run.main`` with ``--viz_port 0`` over three
+    frames, ``/state.json`` read after the run. To keep the script near 900
+    s, the first mapping call of phase 13's command line, phase 14's command
+    line and phase 15's speed blocks is cut to CLI_ITERS_FIRST,
+    IMAP_CLI_ITERS_FIRST and SPEED_ITERS_FIRST iterations: they check a path
+    or time later frames, not the first call's fit.
 
 Scene grids and decoders start random, from a seed; only the mapping phase
 fits them. Every phase that fails ends the run with a non-zero exit code. Without a CUDA
@@ -105,6 +121,7 @@ import subprocess
 import sys
 import time
 import traceback
+import urllib.request
 import warnings
 from types import SimpleNamespace
 
@@ -175,6 +192,7 @@ from evennicer_slam_tpu_torch.slam.tracker import (  # noqa: E402
     track_frame,
     tracking_loss,
 )
+from evennicer_slam_tpu_torch.tools import viz, viz_server  # noqa: E402
 from evennicer_slam_tpu_torch.tools.eval_ate import evaluate_checkpoint  # noqa: E402
 from evennicer_slam_tpu_torch.tools.eval_recon import (  # noqa: E402
     calc_2d_metric,
@@ -183,7 +201,12 @@ from evennicer_slam_tpu_torch.tools.eval_recon import (  # noqa: E402
     seen_surface,
 )
 from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger  # noqa: E402
-from evennicer_slam_tpu_torch.utils.optim import adam_init, adam_update, tree_map  # noqa: E402
+from evennicer_slam_tpu_torch.utils.optim import (  # noqa: E402
+    adam_init,
+    adam_update,
+    tree_leaves,
+    tree_map,
+)
 from evennicer_slam_tpu_torch.utils.runtime import setup_torch  # noqa: E402
 from evennicer_slam_tpu_torch.utils.visualizer import MARGIN as VIS_MARGIN  # noqa: E402
 
@@ -1079,12 +1102,14 @@ def colour_stage_skipped():
         mapper_module.stage_schedule = schedule
 
 
-def steady_call(mapper, grids, decoders, f, pose, dev, fault=None):
+def steady_call(mapper, grids, decoders, f, pose, dev, fault=None, dp=None):
     """One ``Mapper.optimize_map`` call of MAP_CHECK_ITERS iterations on
-    ``dev`` from a copy of ``mapper``'s state (``fault`` plants one):
+    ``dev`` from a copy of ``mapper``'s state (``fault`` plants one; ``dp``:
+    the rays over these device slots):
     the map after it, the keyframe pose stack after the BA write-back, the
     current frame's new pose and the last loss."""
     m, (g, d) = clone_mapper(mapper, grids, decoders, dev)
+    m.dp = dp
     if fault == "BA off":
         m.BA_active = False
     if fault == "frustum masks off":
@@ -1460,6 +1485,7 @@ RECON_BARS = {
 RECON_2D_VIEWS = 10
 RECON_FAULTS = ("volume without its transpose", "map before its first mapping call")
 CLI_FRAMES = 6
+CLI_ITERS_FIRST = 100  # cut from MAP_ITERS_FIRST: the command line's path, not the fit
 CLI_OUT = os.path.join(cuda_build.BUILD_DIR, "cli_out")
 
 
@@ -1566,6 +1592,7 @@ def command_line(frag):
     os.makedirs(CLI_OUT)
     cfg = pipeline_config(frag)
     cfg["data"]["output"] = CLI_OUT
+    cfg["mapping"]["iters_first"] = CLI_ITERS_FIRST
     path = os.path.join(CLI_OUT, "config.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
@@ -1658,6 +1685,7 @@ def reconstruction(frag, slam, start_state, mesh_recs):
 # matrix products in float32 (TF32 off).
 IMAP_FRAMES = MAP_FRAMES
 IMAP_CLI_FRAMES = 6
+IMAP_CLI_ITERS_FIRST = 300  # cut from the shipped 1,500: the command line's path, not the fit
 IMAP_OUT = os.path.join(SCENE_DIR, "output_imap")
 IMAP_CLI_OUT = os.path.join(cuda_build.BUILD_DIR, "imap_cli_out")
 IMAP_COLOUR_VERTICES = 2000
@@ -1764,6 +1792,11 @@ def imap_command_line(frag):
     from evennicer_slam_tpu_torch.tools import eval_ate
 
     _, path = imap_config(frag, IMAP_CLI_OUT)
+    with open(path) as f:
+        scene = yaml.safe_load(f)
+    scene["mapping"]["iters_first"] = IMAP_CLI_ITERS_FIRST
+    with open(path, "w") as f:
+        yaml.safe_dump(scene, f)
     t0 = time.perf_counter()
     port_run.main([path, "--imap", "--end_frame", str(IMAP_CLI_FRAMES),
                    "--output", IMAP_CLI_OUT])
@@ -1902,6 +1935,7 @@ JPEG_QUALITY = 95
 JPEG_PSNR_MIN = 40.0
 DECODE_TIMED = 5       # the median of the first five frames' decodes
 SPEED_BLOCKS = 2       # timed 5-frame blocks after frames 0-5, frames not preloaded
+SPEED_ITERS_FIRST = 60  # cut: the blocks time frames 6-15, not the first call's fit
 TUM_FR1 = {"H": 480, "W": 640, "fx": 517.3, "fy": 516.5, "cx": 318.6, "cy": 255.3,
            "distortion": [0.2624, -0.9531, -0.0054, 0.0026, 1.1633]}
 UNDISTORT_CALLS = 5
@@ -1991,10 +2025,12 @@ def decode_checks(frag, jfrag):
 
 def block_speed(frag, dev, label):
     """Phase 12's configuration over a scene, frames not preloaded: frames
-    0-5, then SPEED_BLOCKS timed blocks of five frames, each ending with its
-    steady mapping call and a synchronise. Returns frames per second a block."""
+    0-5 (the first mapping call cut to SPEED_ITERS_FIRST iterations), then
+    SPEED_BLOCKS timed blocks of five frames, each ending with its steady
+    mapping call and a synchronise. Returns frames per second a block."""
     cfg = pipeline_config(frag)
     cfg["data"]["output"] = os.path.join(JPEG_SCENE_DIR, f"output_speed_{label}")
+    cfg["mapping"]["iters_first"] = SPEED_ITERS_FIRST
     slam = EvenNICERSLAM(cfg, device=dev)
     for idx in range(PIPE_WARM):
         slam.step(idx)
@@ -2421,6 +2457,268 @@ def event_network(dev):
     return [f"event network: {f}" for f in failed_a + failed_b], res, n_launch
 
 
+# ---- 17. the viewer and device groups -----------------------------------------------
+# (a) loose and free over frames 0-15 of phase 12's room (pipeline_config: the
+# NICE configuration at full width, bench.py's overrides) on two slots of the
+# one card, the first mapping call cut to GROUP_ITERS_FIRST; (b) one
+# event-tracked frame (phase 4's inputs) and one steady mapping call (phase
+# 11's state) with their rays over 2 and 3 slots against 1; (c) the viewer on
+# phase 12's output; (d) the command line with --viz_port.
+GROUP_FRAMES = 16
+GROUP_ITERS_FIRST = 100  # cut from MAP_ITERS_FIRST: the schedule, not the fit, is checked here
+GROUP_DP = (2, 3)        # 3: the mapping call's 1,000 rays split 334 / 333 / 333
+DP_POSE_ATOL = 1e-5      # renders split by rays are the same per point; only sums reorder
+DP_LOSS_RTOL = 1e-5
+VIEW_OUT = os.path.join(SCENE_DIR, "output_viewer")
+VIEW_FRAME_STEP = 5
+VIZ_CLI_FRAMES = 3
+VIZ_CLI_OUT = os.path.join(cuda_build.BUILD_DIR, "viz_cli_out")
+
+
+def group_run(frag, dev, sync):
+    """``EvenNICERSLAM.run`` over frames 0-15 with ``sync_method`` ``sync``
+    on ``devices=[dev] * 2`` and ``parallel.map_devices`` 1."""
+    cfg = pipeline_config(frag)
+    cfg["sync_method"] = sync
+    cfg["parallel"] = {"map_devices": 1}
+    cfg["mapping"]["iters_first"] = GROUP_ITERS_FIRST
+    cfg["data"]["output"] = os.path.join(SCENE_DIR, f"output_{sync}")
+    slam = EvenNICERSLAM(cfg, device=dev, devices=[dev] * 2)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = slam.run(end_frame=GROUP_FRAMES, mesh=False, checkpoint=False)[:GROUP_FRAMES]
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    n_fwd, n_bwd = launches()
+    gt = slam.gt_c2w_list[:GROUP_FRAMES].astype(np.float64)
+    err = np.linalg.norm(est[:, :3, 3].astype(np.float64) - gt[:, :3, 3], axis=1)
+    every = slam.m_cfg.every_frame
+    bound_held = all(a >= i - every - every // 2 for i, a in slam.lag_trace)
+    t = slam.timers.total
+    tcfg = slam.t_cfg
+    want = sum(tcfg.iters * (2 if i % tcfg.rgbd_every_frame == 0 else 1)
+               for i in range(1, GROUP_FRAMES))
+    res = {"sync_method": sync, "frames": GROUP_FRAMES, "concurrent": slam.concurrent,
+           "groups": [len(slam.groups.track), len(slam.groups.map)] if slam.groups else None,
+           "n_concurrent_maps": slam.n_concurrent_maps, "n_fast_maps": slam.n_fast_maps,
+           "lag_trace": slam.lag_trace, "lag_bound_held": bound_held,
+           "grids_on_cuda": all(x.is_cuda for x in tree_leaves(slam.grids)),
+           "snapshot_on_cuda": slam._track_grids is not None
+           and all(x.is_cuda for x in tree_leaves(slam._track_grids)),
+           "ate_rmse_m": float(np.sqrt(np.mean(err ** 2))), "ate_bar_m": ATE_BENCH_BAR,
+           "run_s": run_s, "host_map_enqueue_s": t["map"], "host_track_s": t["track"],
+           "host_loose_wait_s": t.get("loose_wait", 0.0),
+           "fwd_launches": n_fwd, "bwd_launches": n_bwd, "expected_launches": want}
+    say(f"{sync} schedule on two slots of the card: " + json.dumps(res))
+    failed = []
+    if not (slam.concurrent and res["groups"] == [1, 1]):
+        failed.append("did not run on two slot groups")
+    if not (sync == "free" or bound_held):
+        failed.append(f"the lag bound broke: {slam.lag_trace}")
+    if slam.n_concurrent_maps < 3:
+        failed.append(f"{slam.n_concurrent_maps} mapping calls")
+    if not (res["grids_on_cuda"] and res["snapshot_on_cuda"]):
+        failed.append("the grids or the tracker's snapshot are not on the card")
+    if not res["ate_rmse_m"] <= ATE_BENCH_BAR:
+        failed.append(f"ATE {res['ate_rmse_m']:.4f} m above {ATE_BENCH_BAR} m")
+    if (n_fwd, n_bwd) != (want, want):
+        failed.append(f"the decode kernels launched {n_fwd} / {n_bwd} times, expected {want}")
+    return [f"{sync} schedule: {f}" for f in failed], res, (n_fwd, n_bwd)
+
+
+def dp_tracked_frame(mp, decoders, packed, bound_t, dev, dp):
+    """Phase 4's frame tracked event-only (ten iterations) from the true pose
+    moved a little, its rays over ``dp`` slots (None: one); returns the best
+    pose tensor, the event losses and the launches."""
+    tcfg = mp.tcfg
+    start = pose_matrix_from_tensor(mp.true_pose + torch.tensor(
+        [0, 0.002, -0.001, 0.001, 0.01, -0.005, 0.008], device=dev))
+    start = torch.cat([start, torch.eye(4, device=dev)[3:4]])
+    reset_launches()
+    cam_t, _, losses, _ = track_frame(
+        start, torch.eye(4, device=dev), decoders, packed, mp.eventnet, bound_t,
+        torch.Generator(device=dev).manual_seed(SEED + 7), mp.color, mp.depth,
+        mp.gt_event_lo, mp.prev_color_lo, mp.gt_depth_lo_flat, mp.gt_mask_lo,
+        torch.zeros(7, device=dev), 1.0, tcfg, mp.cam, mp.settings, rgbd=False, event=True,
+        const_speed=False, device=dev, dp=dp)
+    torch.cuda.synchronize()
+    return cam_t, losses["event"], launches()
+
+
+def data_parallel(mp, decoders, packed, bound_t, dev, steady_state):
+    """(b): the tracked frame and one steady mapping call (MAP_CHECK_ITERS
+    iterations, K = 5, BA) at dp = 2 and 3 against dp = 1, on slots of the
+    one card."""
+    one_cam, one_loss, one_launch = dp_tracked_frame(mp, decoders, packed, bound_t, dev, None)
+    mapper, grids, decoders_m, f, pose = steady_state
+    one_map = steady_call(mapper, grids, decoders_m, f, pose, dev)
+    res, failed = {"dp1_launches": one_launch}, []
+    for n in GROUP_DP:
+        slots = [dev] * n
+        cam_t, loss, n_launch = dp_tracked_frame(mp, decoders, packed, bound_t, dev, slots)
+        pose_gap = float((cam_t - one_cam).abs().max())
+        loss_gap = float(((loss - one_loss).abs() / one_loss.abs()).max())
+        got = steady_call(mapper, grids, decoders_m, f, pose, dev, dp=slots)
+        dist = mapping_distance(got, one_map, (grids, decoders_m))
+        res[f"dp{n}"] = {"pose_gap": pose_gap, "event_loss_gap_rel": loss_gap,
+                         "launches": n_launch, "mapping_vs_dp1": dist,
+                         "mapping_rays_split": [len(x) for x in torch.tensor_split(
+                             torch.zeros(mapper.cfg.pixels // got["K"] * got["K"]), n)]}
+        if not (pose_gap <= DP_POSE_ATOL and loss_gap <= DP_LOSS_RTOL):
+            failed.append(f"dp {n}: tracked frame {pose_gap:.3e} / {loss_gap:.3e} from dp 1")
+        if n_launch != tuple(n * x for x in one_launch):
+            failed.append(f"dp {n}: decode launched {n_launch}, expected {n} x {one_launch}")
+        if not (math.isfinite(float(got["loss"])) and within(dist)):
+            failed.append(f"dp {n}: the mapping call lies outside phase 11's limits: {dist}")
+    res["limits"] = {"pose_atol": DP_POSE_ATOL, "loss_rtol": DP_LOSS_RTOL,
+                     "mapping": "phase 11's card-vs-CPU limits"}
+    say("data-parallel rays on slots of the card, against dp = 1: " + json.dumps(res))
+    return [f"data parallelism: {x}" for x in failed], res
+
+
+def gif_frames(path):
+    """Image descriptors in a GIF, counted by walking its blocks."""
+    with open(path, "rb") as fh:
+        b = fh.read()
+    if b[:6] not in (b"GIF87a", b"GIF89a"):
+        return -1
+    pos = 13 + (3 * 2 ** ((b[10] & 7) + 1) if b[10] & 0x80 else 0)
+    n = 0
+    while pos < len(b) and b[pos] != 0x3B:
+        if b[pos] == 0x21:        # extension: label, then sub-blocks
+            pos += 2
+        else:                     # image descriptor, colour table, LZW size
+            flags = b[pos + 9]
+            pos += 10 + (3 * 2 ** ((flags & 7) + 1) if flags & 0x80 else 0) + 1
+            n += 1
+        while b[pos]:
+            pos += b[pos] + 1
+        pos += 1
+    return n
+
+
+def http_get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return r.read()
+
+
+def parse_mesh_bin(body):
+    """(magic, version, vertices, faces, whether the body's length fits the header)."""
+    magic, version, nv, nf = (int(x) for x in np.frombuffer(body[:16], "<u4"))
+    return magic, version, nv, nf, len(body) == 16 + nv * 28 + nf * 12
+
+
+def viewer():
+    """(c): the viewer over HTTP on phase 12's output (its last checkpoint
+    and the every-frame run's final mesh, copied into one directory), then
+    the replay frames and the GIF."""
+    shutil.rmtree(VIEW_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(VIEW_OUT, "mesh"))
+    shutil.copytree(os.path.join(SCENE_DIR, "output", "ckpts"), os.path.join(VIEW_OUT, "ckpts"))
+    shutil.copy(os.path.join(SCENE_DIR, "output_every", "mesh", "final_mesh.ply"),
+                os.path.join(VIEW_OUT, "mesh", "final_mesh.ply"))
+    t0 = time.perf_counter()
+    httpd, watcher = viz_server.serve(VIEW_OUT, port=0, blocking=False)
+    try:
+        start_s = time.perf_counter() - t0
+        port = httpd.server_address[1]
+        page, state, body = http_get(port, "/"), http_get(port, "/state.json"), \
+            http_get(port, "/mesh.bin")
+    finally:
+        httpd.shutdown()
+        watcher.stop()
+    state = json.loads(state)
+    magic, version, nv, nf, fits = parse_mesh_bin(body)
+    t0 = time.perf_counter()
+    viz.replay(VIEW_OUT, save_rendering=True, gif=True, frame_step=VIEW_FRAME_STEP)
+    replay_s = time.perf_counter() - t0
+    n_frames = gif_frames(os.path.join(VIEW_OUT, "replay.gif"))
+    want_frames = len(range(1, state["idx"] + 1, VIEW_FRAME_STEP))
+    res = {"serve_and_load_s": start_s, "page_bytes": len(page),
+           "page_is_the_viewer": page == viz_server.PAGE.encode(),
+           "state_idx": state["idx"], "mesh_version": state["mesh_version"],
+           "n_verts": state["n_verts"], "n_faces": state["n_faces"],
+           "mesh_bin": {"bytes": len(body), "magic_ok": magic == 0x4D455348,
+                        "version": version, "verts": nv, "faces": nf, "length_fits": fits},
+           "replay_s": replay_s, "gif_frames": n_frames, "gif_frames_expected": want_frames}
+    say("viewer on phase 12's output: " + json.dumps(res))
+    failed = []
+    if not (res["page_is_the_viewer"] and state["mesh_version"] == version == 1
+            and magic == 0x4D455348 and (nv, nf) == (state["n_verts"], state["n_faces"])
+            and nf > 0 and fits):
+        failed.append("the endpoints did not parse")
+    if n_frames != want_frames:
+        failed.append(f"the GIF holds {n_frames} frames, expected {want_frames}")
+    return [f"viewer: {x}" for x in failed], res
+
+
+def viz_command_line(frag):
+    """(d): ``run.main`` with ``--viz_port 0`` over frames 0-2 (first
+    mapping call GROUP_ITERS_FIRST iterations), ``/state.json`` read after
+    the run from the server it started."""
+    shutil.rmtree(VIZ_CLI_OUT, ignore_errors=True)
+    os.makedirs(VIZ_CLI_OUT)
+    cfg = pipeline_config(frag)
+    cfg["data"]["output"] = VIZ_CLI_OUT
+    cfg["mapping"]["iters_first"] = GROUP_ITERS_FIRST
+    path = os.path.join(VIZ_CLI_OUT, "config.yaml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    servers = []
+    serve = viz_server.serve
+
+    def kept(*a, **kw):
+        servers.append(serve(*a, **kw))
+        return servers[-1]
+
+    viz_server.serve = kept
+    try:
+        port_run.main([path, "--end_frame", str(VIZ_CLI_FRAMES), "--output", VIZ_CLI_OUT,
+                       "--viz_port", "0"])
+    finally:
+        viz_server.serve = serve
+    failed = []
+    if len(servers) != 1:
+        return ["command line: --viz_port started no server"], {}
+    httpd, watcher = servers[0]
+    try:
+        watcher.refresh()  # the poll thread's next look, now
+        state = json.loads(http_get(httpd.server_address[1], "/state.json"))
+    finally:
+        httpd.shutdown()
+        watcher.stop()
+    res = {"frames": VIZ_CLI_FRAMES, "state_idx": state["idx"], "est": len(state["est"]),
+           "mesh_path": state.get("mesh_path"), "n_faces": state["n_faces"]}
+    say("run.main --viz_port 0: " + json.dumps(res))
+    if not (state["idx"] == VIZ_CLI_FRAMES - 1 and len(state["est"]) == VIZ_CLI_FRAMES
+            and state["n_faces"] > 0):
+        failed.append(f"/state.json after the run: {res}")
+    return [f"command line: {x}" for x in failed], res
+
+
+def groups_and_viewer(frag, dev, mp, decoders, packed, bound_t, steady_state):
+    """Phase 17. Returns (failures, results, launches on its main paths)."""
+    t0 = time.perf_counter()
+    failed, res, fwd, bwd = [], {}, 0, 0
+    for sync in ("loose", "free"):
+        f, r, (n_f, n_b) = group_run(frag, dev, sync)
+        failed += f
+        res[sync] = r
+        fwd, bwd = fwd + n_f, bwd + n_b
+    f, res["data_parallel"] = data_parallel(mp, decoders, packed, bound_t, dev, steady_state)
+    failed += f
+    for n in GROUP_DP:
+        fwd += res["data_parallel"][f"dp{n}"]["launches"][0]
+        bwd += res["data_parallel"][f"dp{n}"]["launches"][1]
+    f, res["viewer"] = viewer()
+    failed += f
+    f, res["command_line"] = viz_command_line(frag)
+    failed += f
+    res["phase_s"] = time.perf_counter() - t0
+    return failed, res, (fwd, bwd)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2650,7 +2948,8 @@ def main():
     lap("10 map and track")
 
     # ---- 11. one steady mapping call on the card and on the CPU -------------------
-    cpu_res = mapping_card_vs_cpu(*steady_mapping_state(cfg, cam, dev, m_frames), dev)
+    steady_state = steady_mapping_state(cfg, cam, dev, m_frames)
+    cpu_res = mapping_card_vs_cpu(*steady_state, dev)
     lap("11 steady call card vs CPU")
 
     # ---- 12. the pipeline from disk -----------------------------------------------
@@ -2686,6 +2985,13 @@ def main():
     failed_ev, ev_res, (launches_ev_fwd, launches_ev_bwd) = event_network(dev)
     failed += failed_ev
     lap("16 event network")
+
+    # ---- 17. the viewer and device groups -------------------------------------------
+    failed_grp, grp_res, (launches_grp_fwd, launches_grp_bwd) = groups_and_viewer(
+        frag, dev, mp, decoders, packed, bound_t, steady_state)
+    failed += failed_grp
+    del steady_state
+    lap("17 viewer and device groups")
     say("seconds by phase: " + json.dumps(laps))
     if failed:
         raise RuntimeError("; ".join(failed))
@@ -2702,7 +3008,8 @@ def main():
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:177",
         "launches": (launches_main + launches_track_fwd + launches_map_fwd + launches_pipe_fwd
-                     + launches_cli_fwd + launches_fmt_fwd + launches_ev_fwd),
+                     + launches_cli_fwd + launches_fmt_fwd + launches_ev_fwd
+                     + launches_grp_fwd),
         "launches_scores": launches_main,
         "launches_tracking": launches_track_fwd,
         "launches_map_and_track": launches_map_fwd,
@@ -2711,6 +3018,7 @@ def main():
         "launches_imap": imap_res["fused_decode_launches"][0],
         "launches_shipped_formats": launches_fmt_fwd,
         "launches_event_network": launches_ev_fwd,
+        "launches_groups": launches_grp_fwd,
         "max_abs_err": max(main_res["max_abs_err"], small["max_abs_err"]),
         "ms": main_res["ms"],
         "plain_ms": main_res["plain_ms"],
@@ -2730,7 +3038,7 @@ def main():
         "source": "evennicer_slam_tpu_torch/csrc/fused_decode_bwd.cu",
         "replaces": "evennicer_slam_tpu/ops/fused_decode.py:188",
         "launches": (launches_track_bwd + launches_map_bwd + launches_pipe_bwd + launches_cli_bwd
-                     + launches_fmt_bwd + launches_ev_bwd),
+                     + launches_fmt_bwd + launches_ev_bwd + launches_grp_bwd),
         "launches_tracking": launches_track_bwd,
         "launches_map_and_track": launches_map_bwd,
         "launches_pipeline": launches_pipe_bwd,
@@ -2738,6 +3046,7 @@ def main():
         "launches_imap": imap_res["fused_decode_launches"][1],
         "launches_shipped_formats": launches_fmt_bwd,
         "launches_event_network": launches_ev_bwd,
+        "launches_groups": launches_grp_bwd,
         "max_abs_err": max(bwd_main["max_abs_err"], bwd_small["max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],
@@ -2808,6 +3117,18 @@ def main():
         | {"variants": {k: {"ate_rmse_m": v["ate_rmse_m"], "s": v["s"]}
                         for k, v in ab["variants"].items()}},
         "phase_s": ev_res["phase_s"]}))
+    say("viewer and device groups: " + json.dumps({
+        sync: {k: grp_res[sync][k] for k in (
+            "n_concurrent_maps", "lag_bound_held", "ate_rmse_m", "run_s", "host_map_enqueue_s",
+            "host_loose_wait_s")} for sync in ("loose", "free")}
+        | {"data_parallel": {f"dp{n}": {k: grp_res["data_parallel"][f"dp{n}"][k] for k in (
+            "pose_gap", "event_loss_gap_rel", "launches")}
+            | {"worst_leaf_rel": grp_res["data_parallel"][f"dp{n}"]["mapping_vs_dp1"][
+                "leaf_update_rel"]} for n in GROUP_DP},
+           "viewer": {k: grp_res["viewer"][k] for k in (
+               "state_idx", "n_verts", "n_faces", "replay_s", "gif_frames")},
+           "command_line_state_idx": grp_res["command_line"]["state_idx"],
+           "phase_s": grp_res["phase_s"]}))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

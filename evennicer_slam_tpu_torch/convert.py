@@ -127,13 +127,15 @@ def pipeline_state_from_numpy(slam, grids, decoders, eventnet=None):
     """Put the JAX pipeline's initial scene state (grids, decoders and, when
     given, EventNet weights, as numpy trees) into a port ``EvenNICERSLAM``,
     on its device, so that both pipelines start from the same map and nets.
-    The tracker and the mapper share the pipeline's EventNet tree, so they
-    are handed the new one too. Checkpoints (``utils/logger.py``) carry the
+    The scene state goes to the mapper's device (the map group's in
+    concurrent mode); the tracker and the mapper are handed the new EventNet
+    too, each on its own device. Checkpoints (``utils/logger.py``) carry the
     rest of the state across."""
-    slam.grids = grids_from_numpy(grids, slam.device)
-    slam.decoders = decoders_from_numpy(decoders, slam.device)
+    slam.grids = grids_from_numpy(grids, slam.mapper.device)
+    slam.decoders = decoders_from_numpy(decoders, slam.mapper.device)
     if eventnet:
         slam.eventnet = eventnet_from_numpy(eventnet, slam.device)
         slam.tracker.eventnet = slam.eventnet
-        slam.mapper.eventnet = slam.eventnet
+        slam.mapper.eventnet = (slam.eventnet if slam.mapper.device == slam.device
+                                else eventnet_from_numpy(eventnet, slam.mapper.device))
     return slam

@@ -22,7 +22,7 @@ dicts of tensors (counterpart of ``evennicer_slam_tpu/models/decoders.py``).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -214,8 +214,11 @@ def _mlp_forward(
     p: torch.Tensor,
     feat: Optional[torch.Tensor],
     mm_dtype=None,
+    inj: Optional[List[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One MLP: p [N,3], feat [N,c] -> [N] (occupancy) or [N,4] (color).
+    ``inj[i]``, when given, is block i's feature-injection product
+    ``feat @ fc_w[i]`` computed elsewhere (``feat`` is then not read).
 
     Skip positions and the color head are inferred from weight shapes (a
     layer expecting ``hidden + emb`` inputs marks a preceding skip).
@@ -246,7 +249,9 @@ def _mlp_forward(
     n_blocks = len(params["lin_w"])
     for i, (w, b) in enumerate(zip(params["lin_w"], params["lin_b"])):
         h = torch.relu(mm(h, w) + b)
-        if feat is not None:
+        if inj is not None:
+            h = h + inj[i] + params["fc_b"][i]
+        elif feat is not None:
             h = h + mm(feat, params["fc_w"][i]) + params["fc_b"][i]
         hidden = w.shape[1]
         next_in = (

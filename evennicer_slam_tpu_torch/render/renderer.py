@@ -17,7 +17,7 @@ of the surface.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,7 @@ from evennicer_slam_tpu_torch.core.sampling import (
 )
 from evennicer_slam_tpu_torch.models.decoders import decoder_forward
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear
+from evennicer_slam_tpu_torch.parallel.sharding import gather_rows, replicate, shard_rows
 from evennicer_slam_tpu_torch.utils.runtime import require_on, resolve_device
 
 
@@ -76,14 +77,19 @@ def eval_points(
     bound: torch.Tensor,
     stage: str,
     settings: RenderSettings,
+    raw_fn: Optional[Callable] = None,
 ) -> torch.Tensor:
-    """Decode raw (rgb, occ) for points [N, 3]; out-of-bound occ := 100."""
-    raw = decoder_forward(
-        decoders, grids, p, bound, stage,
-        nice=settings.nice,
-        coarse_bound_enlarge=settings.coarse_bound_enlarge,
-        fused=settings.fused_decode,
-    )
+    """Decode raw (rgb, occ) for points [N, 3]; out-of-bound occ := 100.
+    ``raw_fn(p, stage)`` replaces the decoders' forward when given."""
+    if raw_fn is not None:
+        raw = raw_fn(p, stage)
+    else:
+        raw = decoder_forward(
+            decoders, grids, p, bound, stage,
+            nice=settings.nice,
+            coarse_bound_enlarge=settings.coarse_bound_enlarge,
+            fused=settings.fused_decode,
+        )
     inside = points_inside_bound(p, bound)
     occ = torch.where(inside, raw[..., -1], 100.0)
     return torch.cat([raw[..., :-1], occ[..., None]], dim=-1)
@@ -99,6 +105,8 @@ def render_rays(
     settings: RenderSettings,
     gt_depth: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    far_max: Optional[torch.Tensor] = None,
+    raw_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Render a batch of rays -> (depth [N], depth_var [N], color [N, 3]).
 
@@ -106,7 +114,11 @@ def render_rays(
     near-surface band [0.95 d, 1.05 d] (uniform fallback for d == 0), z-sorted
     merge, staged decode, composite; optional importance resampling. The
     coarse stage ignores gt_depth. ``generator`` feeds the stratified jitter
-    (``perturb > 0``) and the importance draws, in that order."""
+    (``perturb > 0``) and the importance draws, in that order. ``far_max``
+    is the batch's ``max(1.2 d)``: a caller that renders a batch in parts
+    (``render_rays_dp``) hands in the whole batch's. ``raw_fn(points,
+    stage)`` replaces the decoders' forward (``parallel/tp_example.py``
+    decodes across its tensor-parallel slots)."""
     n_samples = settings.n_samples
     n_surface = settings.n_surface
 
@@ -120,7 +132,9 @@ def render_rays(
 
     far_bb = ray_bound_exit(rays_o.detach(), rays_d.detach(), bound)[..., None] + 0.01
     if gt_depth is not None:
-        far = torch.minimum(torch.clamp(far_bb, min=0.0), torch.max(gt_depth * 1.2))
+        if far_max is None:
+            far_max = torch.max(gt_depth * 1.2)
+        far = torch.minimum(torch.clamp(far_bb, min=0.0), far_max)
         # keep the stratified sequence monotone for the sort-free merge
         # (rays whose bound exit precedes the near plane are degenerate and
         # loss-masked anyway)
@@ -137,7 +151,7 @@ def render_rays(
     def decode(z):
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z[..., :, None]
         flat = pts.reshape(-1, 3)
-        raw = eval_points(decoders, grids, flat, bound, stage, settings)
+        raw = eval_points(decoders, grids, flat, bound, stage, settings, raw_fn)
         return raw.reshape(z.shape + (4,))
 
     if n_surface > 0 and settings.occupancy and settings.n_importance == 0:
@@ -174,6 +188,47 @@ def render_rays(
         )
 
     return depth, depth_var, color
+
+
+def render_rays_dp(
+    decoders: Dict[str, Any],
+    grids: Optional[Dict[str, torch.Tensor]],
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    bound: torch.Tensor,
+    stage: str,
+    settings: RenderSettings,
+    gt_depth: Optional[torch.Tensor] = None,
+    dp: Optional[Sequence[torch.device]] = None,
+    replicas: Optional[Sequence[Any]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``render_rays`` with the rays split over the ``dp`` slots (the JAX
+    package's ray batches constrained to its dp mesh axis): each slot
+    renders its rows through ``render_rays``, so the fused decode launches
+    once a slot, and the outputs come back in order to the rays' device.
+    The far plane is the whole batch's. ``replicas[i]`` = (decoders, grids,
+    bound) on slot i, when the caller has them already (a frame's frozen
+    map); otherwise they are made by a differentiable ``.to``, so the
+    gradients of every slot's copy sum back into the parameters. ``dp``
+    None is ``render_rays`` itself."""
+    if dp is None:
+        return render_rays(decoders, grids, rays_o, rays_d, bound, stage, settings,
+                           gt_depth=gt_depth)
+    lead = rays_o.device
+    if stage == "coarse":
+        gt_depth = None
+    far_max = None if gt_depth is None else torch.max(gt_depth * 1.2)
+    if replicas is None:
+        replicas = [replicate((decoders, grids, bound), d) for d in dp]
+    ro, rd = shard_rows(rays_o, dp), shard_rows(rays_d, dp)
+    gd = shard_rows(gt_depth, dp) if gt_depth is not None else [None] * len(dp)
+    outs = []
+    for d, (dec, g, b), o, r, z in zip(dp, replicas, ro, rd, gd):
+        if o.shape[0] == 0:  # fewer rays than slots
+            continue
+        outs.append(render_rays(dec, g, o, r, b, stage, settings, gt_depth=z,
+                                far_max=None if far_max is None else far_max.to(d)))
+    return tuple(gather_rows([out[k] for out in outs], lead) for k in range(3))
 
 
 def regulation_sigma(

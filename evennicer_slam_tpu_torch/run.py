@@ -2,7 +2,7 @@
 
     python -m evennicer_slam_tpu_torch.run configs/Replica/room0.yaml \
         [--input_folder F] [--event_folder E] [--output O] [--resume] \
-        [--end_frame N] [--device cuda|cpu] [--nice | --imap]
+        [--end_frame N] [--device cuda|cpu] [--nice | --imap] [--viz_port P]
 
 Runs ``EvenNICERSLAM.run`` over the sequence: checkpoints every
 ``mapping.ckpt_freq`` frames, a mesh every ``mapping.mesh_freq`` frames,
@@ -13,8 +13,9 @@ asks for the CPU. ``--imap`` runs iMAP, its configuration over
 ``configs/imap.yaml`` (``--nice``, the default, over ``configs/nice_slam.yaml``).
 
 ``enable_vis: true`` (the shipped default) writes the visualiser's panels
-under the output directory. Not ported yet, and refused before the first
-frame: ``--viz_port``, the interactive viewer (ROADMAP Queue 1 item 4).
+under the output directory. ``--viz_port P`` serves the browser viewer
+(``tools/viz_server.py``) on port P (0: any free port) while the run goes
+on, watching the output directory.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--end_frame", type=int, default=None,
                         help="stop after this many frames (debugging)")
     parser.add_argument("--viz_port", type=int, default=None,
-                        help="the interactive viewer (not ported: ROADMAP Queue 1 item 4)")
+                        help="serve the live browser viewer on this port while running")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the run (default cuda; cpu for tests)")
     nice_parser = parser.add_mutually_exclusive_group(required=False)
@@ -52,9 +53,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.viz_port is not None:
-        raise NotImplementedError("--viz_port: the viewer is not ported (ROADMAP Queue 1 "
-                                  "item 4, host side, the other datasets, and tools)")
 
     from evennicer_slam_tpu_torch.config import default_config_path, load_config
     from evennicer_slam_tpu_torch.slam.pipeline import EvenNICERSLAM
@@ -72,6 +70,10 @@ def main(argv=None):
         if ckpt:
             start = CheckpointLogger.restore(slam, ckpt)
             print(f"Resumed from {ckpt} at frame {start}")
+    if args.viz_port is not None:
+        from evennicer_slam_tpu_torch.tools.viz_server import serve
+
+        serve(slam.output, port=args.viz_port, blocking=False)
     # a resumed run goes through run() too, so its checkpoint and mesh
     # cadence and its final meshes are those of an uninterrupted run
     return slam.run(end_frame=args.end_frame, start_frame=start)

@@ -46,7 +46,12 @@ a call split into chunks slices them, so it is bitwise equal to the
 unchunked call. Keyframe selection draws from numpy generators exactly as
 the JAX package does.
 
-Left out: the device-mesh argument ``dp`` has no counterpart.
+``dp`` (a list of device slots, or None) is the JAX package's device-mesh
+argument: every ray batch of the losses renders split over the slots
+(``render/renderer.py::render_rays_dp``), the parameters reaching each slot
+by a differentiable ``.to``, so the gradients of the copies sum back; the
+losses are computed on the mapper's device as at dp = 1. iMAP's free-space
+regulation stays on the mapper's device.
 """
 
 from __future__ import annotations
@@ -72,7 +77,7 @@ from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 from evennicer_slam_tpu_torch.render.renderer import (
     RenderSettings,
     regulation_sigma,
-    render_rays,
+    render_rays_dp,
 )
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.slam.keyframes import (
@@ -244,11 +249,12 @@ def _sample_window_rays(pixel_idx: torch.Tensor, c2ws: torch.Tensor, colors: tor
 
 def _map_loss(params, fixed_c2w, colors, depths, bound, pixel_idx, cfg: MapperConfig,
               cam: Camera, settings: RenderSettings, stage: str, ba: bool,
-              coarse_mapper: bool, reg_draws: Optional[torch.Tensor] = None) -> torch.Tensor:
+              coarse_mapper: bool, reg_draws: Optional[torch.Tensor] = None,
+              dp=None) -> torch.Tensor:
     """The mapping loss of one window for the drawn pixels ``pixel_idx``
     [K, P]; ``params`` = (grids, decoders, cam_tensors). A non-occupancy
     render adds the free-space regulation, its depth jitter ``reg_draws``
-    [K * P, n_samples]."""
+    [K * P, n_samples]. ``dp``: the render's rays split over these slots."""
     grids, decoders, cam_tensors = params
     c2ws = _window_c2w(cam_tensors, fixed_c2w, ba)
     rays_o, rays_d, b_depth, b_color = _sample_window_rays(pixel_idx, c2ws, colors, depths, cam)
@@ -256,9 +262,9 @@ def _map_loss(params, fixed_c2w, colors, depths, bound, pixel_idx, cfg: MapperCo
         inside = inside_bound_mask(rays_o.detach(), rays_d.detach(), b_depth, bound)
     else:
         inside = torch.ones_like(b_depth, dtype=torch.bool)
-    depth, _, color = render_rays(
+    depth, _, color = render_rays_dp(
         decoders, grids, rays_o, rays_d, bound, stage, settings,
-        gt_depth=None if coarse_mapper else b_depth,
+        gt_depth=None if coarse_mapper else b_depth, dp=dp,
     )
     depth_mask = (b_depth > 0) & inside
     loss = torch.sum(torch.abs(b_depth - depth) * depth_mask)
@@ -345,7 +351,8 @@ def _value_and_grad(loss_fn, params, active):
 
 def _mapper_event_loss(params, fixed_c2w, bound, prev_color_lo, gt_event_lo,
                        gt_depth_lo_flat, eventnet, cfg: MapperConfig, cam: Camera,
-                       settings: RenderSettings, ba: bool, balancer: float) -> torch.Tensor:
+                       settings: RenderSettings, ba: bool, balancer: float,
+                       dp=None) -> torch.Tensor:
     """Event loss of the current frame (the window's last slot): L2 of the
     GT events against the prediction from the 0.15-scale render, plus the
     same after a 3x3 Gaussian blur, times ``balancer``."""
@@ -354,9 +361,9 @@ def _mapper_event_loss(params, fixed_c2w, bound, prev_color_lo, gt_event_lo,
     lo_h, lo_w = prev_color_lo.shape[:2]
     rays_o, rays_d = get_rays_rescale(cam.H, cam.W, lo_h, lo_w, cam.fx, cam.fy, cam.cx,
                                       cam.cy, cur_c2w)
-    _, _, cur_lo = render_rays(
+    _, _, cur_lo = render_rays_dp(
         decoders, grids, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), bound, "color",
-        settings, gt_depth=gt_depth_lo_flat,
+        settings, gt_depth=gt_depth_lo_flat, dp=dp,
     )
     cur_lo = cur_lo.reshape(lo_h, lo_w, 3)
     if cfg.event_predictor == "esim":
@@ -406,6 +413,7 @@ def map_frame(
     device=None,
     seg_starts: Optional[Dict[str, int]] = None,
     reg_draws: Optional[Dict[str, torch.Tensor]] = None,
+    dp=None,
 ):
     """One mapping call (or one chunk of it): the stages in sequence, each
     for ``seg_lens[stage]`` iterations, nothing read back to the host.
@@ -419,6 +427,7 @@ def map_frame(
     generator). ``seg_starts[stage]`` is the stage's first iteration in this
     chunk (0 when not given), which iMAP's StepLR counts from. Adam state is threaded through: ``init_adam`` builds
     it anew (the first chunk of a call) and ignores ``adam`` / ``adam_ev``.
+    ``dp`` (device slots, or None) splits the rays of every render.
 
     Returns (grids, decoders, cam_tensors, adam, adam_ev, last_loss,
     last_event_loss); the losses are tensors of the last iteration."""
@@ -506,11 +515,11 @@ def map_frame(
             def loss_fn(p, i=i):
                 loss = _map_loss(p, fixed_c2w, colors, depths, bound, draws[i], cfg_now, cam,
                                  settings, stage, ba, coarse_mapper,
-                                 None if reg is None else reg[i])
+                                 None if reg is None else reg[i], dp=dp)
                 if fuse_coarse:
                     loss = loss + _map_loss(p, fixed_c2w_c, colors_c, depths_c, bound,
                                             draws_c[i], cfg_now, cam, settings, "coarse",
-                                            False, True)
+                                            False, True, dp=dp)
                 return loss
 
             if not nice:
@@ -525,7 +534,7 @@ def map_frame(
                 def ev_fn(p):
                     return _mapper_event_loss(p, fixed_c2w, bound, prev_color_lo, gt_event_lo,
                                               gt_depth_lo_flat, eventnet, cfg, cam, settings,
-                                              ba, event_balancer)
+                                              ba, event_balancer, dp=dp)
 
                 last_ev, ev_grads = _value_and_grad(ev_fn, params, act_ev)
                 with torch.no_grad():
@@ -561,7 +570,8 @@ def stage_schedule(num_joint_iters: int, cfg: MapperConfig, coarse_mapper: bool,
 class Mapper:
     """Host-side front end of mapping: window selection, frustum masks, keyframe
     registry, and the call into :func:`map_frame`. ``device=None`` means
-    the CUDA device."""
+    the CUDA device; ``dp`` (device slots, or None) splits the rays of
+    every render over the slots."""
 
     def __init__(
         self,
@@ -573,8 +583,10 @@ class Mapper:
         eventnet: Optional[Dict] = None,
         seed: int = 1234,
         device=None,
+        dp=None,
     ):
         self.device = resolve_device(device)
+        self.dp = dp
         self.cfg = cfg
         self.cam = cam
         self.settings = settings
@@ -902,7 +914,7 @@ class Mapper:
                 colors_c, depths_c, fixed_c2w_c, chunk(draws_c), cfg, self.cam,
                 self.settings, ba, self.coarse_mapper, use_frustum, stages, use_events,
                 color_refine, fuse_coarse, init_adam=(ci == 0), device=dev,
-                seg_starts=seg_starts, reg_draws=chunk(reg),
+                seg_starts=seg_starts, reg_draws=chunk(reg), dp=self.dp,
             )
         # a device scalar: reading it here would wait for the whole call
         self.last_loss = loss

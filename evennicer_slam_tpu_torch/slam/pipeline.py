@@ -30,12 +30,24 @@ has no colour refinement.
 frame, mapping panels inside every ``mapping.vis_freq``-th frame's mapping
 call, none of those for an output directory named ``Demo``.
 
-``sync_method: loose|free`` run the strict schedule on one device group, as
-the JAX package's do there (its ``parallel/sharding.py::concurrent_submeshes``
-finds no second group). What the JAX package runs concurrently, loose/free
-with ``parallel.map_devices`` k > 0 and at least k + 1 devices, and data
-parallelism raise ``NotImplementedError`` before the first frame (ROADMAP
-Queue 1 item 5).
+Devices are a list of slots (``devices``; default: every CUDA device when
+``device`` is CUDA, else ``device`` alone), which may repeat one device:
+``["cpu"] * 8`` is the counterpart of the JAX package's eight virtual CPU
+devices. ``parallel.data_parallel`` splits the rays of every render over the
+first n slots (``parallel/sharding.py``).
+
+``sync_method: loose|free`` with ``parallel.map_devices`` k and at least
+k + 1 slots run the tracker and the mapper on two slot groups
+(``concurrent_groups``): the mapper's calls are enqueued on the map group's
+lead device, the tracker's on the track group's, each with ray dp over its
+own group. The tracker adopts each COMPLETED mapping call by a snapshot
+(``_adopt_pending_map``, the reference's ``update_para_from_mapping``): a
+``torch.cuda.Event`` recorded after the call was enqueued says when it has
+completed (on the CPU every call has completed when it returns). The
+reference's lag bound holds in ``_loose_wait``. The schedule is the JAX
+package's, single-threaded: the host enqueues a mapping call's launches
+while the tracker waits. Otherwise loose / free run the strict schedule, as
+the JAX package's do on one device group.
 """
 
 from __future__ import annotations
@@ -61,6 +73,13 @@ from evennicer_slam_tpu_torch.models.eventnet import (
 from evennicer_slam_tpu_torch.models.grids import init_grids
 from evennicer_slam_tpu_torch.models.pretrained import load_pretrained_decoders
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from evennicer_slam_tpu_torch.parallel.sharding import (
+    as_slots,
+    concurrent_groups,
+    default_slots,
+    pipeline_dp_devices,
+    replicate,
+)
 from evennicer_slam_tpu_torch.render.renderer import Renderer, RenderSettings
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig
@@ -70,7 +89,6 @@ from evennicer_slam_tpu_torch.utils.runtime import resolve_device
 from evennicer_slam_tpu_torch.utils.telemetry import MetricsLogger, PhaseTimers
 from evennicer_slam_tpu_torch.utils.visualizer import Visualizer
 
-ROADMAP_CONCURRENCY = "ROADMAP Queue 1 item 5 (concurrency and multi-GPU)"
 # steady mapping calls the host may run ahead of the device
 MAX_INFLIGHT_MAPS = 4
 
@@ -84,29 +102,6 @@ def load_scene_bound(cfg) -> np.ndarray:
     return bound.astype(np.float32)
 
 
-def check_supported(cfg: Dict[str, Any], n_devices: Optional[int] = None) -> None:
-    """Raise ``NotImplementedError``, naming the ROADMAP item that ports it,
-    for a configuration this port cannot run yet: the cases in which the
-    JAX package runs the tracker and the mapper concurrently (its
-    ``concurrent_submeshes``: ``sync_method`` loose or free with
-    ``parallel.map_devices`` k > 0, ``'auto'`` meaning max(1, n // 4), and
-    at least k + 1 of the ``n_devices`` devices; default: the CUDA devices),
-    and data parallelism. Otherwise loose and free run the strict schedule."""
-    par = cfg.get("parallel", {})
-    if cfg.get("sync_method", "strict") in ("loose", "free"):
-        n = torch.cuda.device_count() if n_devices is None else n_devices
-        want = par.get("map_devices", 0)
-        k = max(1, n // 4) if want == "auto" else int(want or 0)
-        if k > 0 and n >= k + 1:
-            raise NotImplementedError(
-                f"sync_method {cfg['sync_method']!r} with parallel.map_devices {want} on "
-                f"{n} devices runs the tracker and the mapper concurrently: "
-                f"{ROADMAP_CONCURRENCY}")
-    dp = par.get("data_parallel", "auto")
-    if dp != "auto" and int(dp) > 1:
-        raise NotImplementedError(f"parallel.data_parallel {dp}: {ROADMAP_CONCURRENCY}")
-
-
 def _seeds(seed: int, n: int):
     """``n`` independent generator seeds from one configuration seed."""
     return [int(s.generate_state(1)[0]) for s in np.random.SeedSequence(seed).spawn(n)]
@@ -114,12 +109,31 @@ def _seeds(seed: int, n: int):
 
 class EvenNICERSLAM:
     """Allocates the scene state, builds the dataset reader, tracker and
-    mapper, and runs the strict interleaved schedule. ``device=None`` means
-    the CUDA device."""
+    mapper, and runs the interleaved schedule. ``device=None`` means the
+    CUDA device; ``devices`` lists the device slots (default: every CUDA
+    device when ``device`` is CUDA, else ``device`` alone)."""
 
-    def __init__(self, cfg: Dict[str, Any], args=None, nice: bool = True, device=None):
+    def __init__(self, cfg: Dict[str, Any], args=None, nice: bool = True, device=None,
+                 devices=None):
         self.device = resolve_device(device)
-        check_supported(cfg, torch.cuda.device_count() if self.device.type == "cuda" else 1)
+        self.devices = default_slots(self.device) if devices is None else as_slots(devices)
+        self.sync_method = cfg.get("sync_method", "strict")
+        # sync_method loose / free + parallel.map_devices: the tracker and the
+        # mapper on disjoint slot groups (GroupPlan); otherwise both share
+        # one set of dp slots and the schedule is strict
+        self.groups = concurrent_groups(cfg, self.devices)
+        self.concurrent = self.groups is not None
+        if self.concurrent:
+            self.dp_devices = None
+            track_dp, map_dp = self.groups.track_dp, self.groups.map_dp
+            # frames, the tracker and the aux subsystems on the track group,
+            # the scene state and the keyframe registry on the map group
+            self.device = self.groups.track_lead
+            map_dev = self.groups.map_lead
+        else:
+            self.dp_devices = pipeline_dp_devices(cfg, self.devices)
+            track_dp = map_dp = self.dp_devices
+            map_dev = self.device
         self.cfg = cfg
         self.nice = nice
         self.coarse = cfg["coarse"] and nice
@@ -141,9 +155,9 @@ class EvenNICERSLAM:
         if nice:
             self.grids = init_grids(g_grid, self.bound, cfg["grid_len"], cfg["model"]["c_dim"],
                                     self.coarse, cfg["model"]["coarse_bound_enlarge"],
-                                    device=dev)
+                                    device=map_dev)
             self.decoders = get_model(dict(cfg, coarse=self.coarse), nice=True,
-                                      generator=g_dec, device=dev)
+                                      generator=g_dec, device=map_dev)
             pre = cfg.get("pretrained_decoders", {})
             mf = pre.get("middle_fine")
             if mf and os.path.exists(mf):
@@ -151,7 +165,7 @@ class EvenNICERSLAM:
                     self.decoders, mf, pre.get("coarse") if self.coarse else None)
         else:
             self.grids = {}
-            self.decoders = get_model(cfg, nice=False, generator=g_dec, device=dev)
+            self.decoders = get_model(cfg, nice=False, generator=g_dec, device=map_dev)
 
         self.frame_reader = PrefetchingReader(get_dataset(cfg, args, cfg["scale"]), device=dev)
         self.n_img = len(self.frame_reader)
@@ -181,9 +195,11 @@ class EvenNICERSLAM:
         # of both compare like with like
         fused = dev.type == "cuda" and nice
         self.tracker = Tracker(t_cfg, self.cam, self.settings._replace(fused_decode=fused),
-                               self.bound, self.eventnet, device=dev)
+                               self.bound, self.eventnet, device=dev, dp=track_dp)
+        # each group its own copy of the EventNet weights
         self.mapper = Mapper(m_cfg, self.cam, self.settings, self.bound,
-                             eventnet=self.eventnet, device=dev)
+                             eventnet=replicate(self.eventnet, map_dev), device=map_dev,
+                             dp=map_dp)
         # the coarse level is optimised inside the fine mapper's calls
         self.mapper.fuse_coarse = self.coarse
         self.t_cfg, self.m_cfg = t_cfg, m_cfg
@@ -203,6 +219,22 @@ class EvenNICERSLAM:
         # the last ones, which hold the host's run-ahead
         self.n_fast_maps = 0
         self._inflight_maps: deque = deque()
+        # concurrent (loose / free) scheduling: the tracker's snapshot of the
+        # last COMPLETED map, the one mapping call in flight, and the trace
+        # of (tracked idx, adopted mapping_idx) pairs
+        self._track_grids = None
+        self._track_decoders = None
+        self._pending_map: Optional[Dict[str, Any]] = None
+        self._last_map_dispatch_idx = -1
+        self.adopted_map_idx = -1
+        self.n_concurrent_maps = 0
+        self.lag_trace: list = []
+        # concurrent mode: the tracker's own recent poses. A BA write-back
+        # replaces _est_dev rows with the map group's output; the tracker's
+        # constant-speed initialisation must not take those, or the next
+        # tracked frame would wait for the whole mapping call (the
+        # reference's mapper writes its poses back behind the tracker too)
+        self._track_pose_cache: Dict[int, torch.Tensor] = {}
         self.timers = PhaseTimers()
         self._mesher = None
         self._renderer = None
@@ -278,9 +310,10 @@ class EvenNICERSLAM:
         prev_fn = resize_nearest if self.t_cfg.prev_resize == "nearest" else resize_bilinear
         prev_lo = prev_fn(tr.pre_gt_color, tr.lo_hw)
         pose = torch.as_tensor(self._pose_np(idx)[:3]).to(self.device)
+        g, d = self._track_state()
         with torch.no_grad():
             _, _, cur_lo = self.renderer.render_img_rescale(
-                self.decoders, self.grids, pose, "color", gt_depth=gt_depth,
+                d, g, pose, "color", gt_depth=gt_depth,
                 scale_factor=self.t_cfg.scale_factor)
             if self.t_cfg.predictor == "esim":
                 pred, _ = esim_predict(prev_lo, cur_lo, self.t_cfg.esim_gain)
@@ -297,7 +330,8 @@ class EvenNICERSLAM:
         still on the device to the host, all in one copy."""
         if self._est_dev:
             idxs = list(self._est_dev)
-            mats = torch.stack([self._est_dev[i] for i in idxs]).cpu().numpy()
+            # tracked poses on the track group, BA write-backs on the map group
+            mats = torch.stack([self._est_dev[i].to(self.device) for i in idxs]).cpu().numpy()
             self._est_np[idxs] = mats
             self._est_dev.clear()
             self._host_copies.clear()
@@ -308,6 +342,7 @@ class EvenNICERSLAM:
         self._est_np = np.asarray(value, np.float32).copy()
         self._est_dev.clear()
         self._host_copies.clear()
+        self._track_pose_cache.clear()
 
     def _set_pose(self, idx: int, c2w):
         self._host_copies.pop(idx, None)
@@ -340,7 +375,7 @@ class EvenNICERSLAM:
         host = torch.empty(c2w.shape, dtype=c2w.dtype, pin_memory=True)
         host.copy_(c2w, non_blocking=True)
         done = torch.cuda.Event()
-        done.record()
+        done.record(torch.cuda.current_stream(c2w.device))
         self._host_copies[idx] = (host, done)
 
     # ------------------------------------------------------------------
@@ -356,7 +391,7 @@ class EvenNICERSLAM:
         if not force and len(self._metric_queue) < batch:
             return
         pending, self._metric_queue = self._metric_queue, []
-        dev_vals = [v.detach().reshape(-1).double() for _, d in pending
+        dev_vals = [v.detach().reshape(-1).double().to(self.device) for _, d in pending
                     for v in d.values() if isinstance(v, torch.Tensor)]
         flat = torch.cat(dev_vals).cpu().numpy() if dev_vals else np.zeros(0)
         pos = 0
@@ -432,6 +467,101 @@ class EvenNICERSLAM:
             total = ev if total is None else total + ev
         return total
 
+    # ------------------------------------------------------------------
+    # concurrent (loose / free) scheduling
+
+    def _init_pose(self, idx: int):
+        """The pose that initialises tracking (constant-speed extrapolation):
+        in concurrent mode the tracker's own output (``_track_pose_cache``)
+        before ``_pose``."""
+        if self.concurrent and idx in self._track_pose_cache:
+            return self._track_pose_cache[idx]
+        return self._pose(idx)
+
+    def _track_state(self):
+        """(grids, decoders) the tracker reads: in concurrent mode the
+        snapshot of the last completed mapping call on the track group,
+        otherwise the mapper's live state."""
+        if not self.concurrent:
+            return self.grids, self.decoders
+        if self._track_grids is None:
+            self._adopt_map_snapshot()
+        return self._track_grids, self._track_decoders
+
+    def _adopt_map_snapshot(self):
+        """Copy the mapper's grids and decoders to the track group's lead
+        device. A mapping call returns new tensors and nothing writes into
+        the ones it returned (``utils/optim.py::adam_update`` is
+        functional), so on one device the snapshot may share them."""
+        self._track_grids, self._track_decoders = replicate((self.grids, self.decoders),
+                                                            self.groups.track_lead)
+
+    def _map_probe(self):
+        """The completion signal of the mapping call just enqueued: an event
+        on the map group's lead device, recorded after it. None on the CPU,
+        where a call has completed when it returns."""
+        dev = self.groups.map_lead
+        if dev.type != "cuda":
+            return None
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        return done
+
+    def _adopt_pending_map(self, block: bool = False) -> bool:
+        """Adopt the in-flight mapping call's output into the tracker's
+        snapshot if it has COMPLETED (``block``: wait for it). Adopting an
+        unfinished call would make the tracker's next frame wait for the
+        mapper, so the non-blocking path asks the event first."""
+        p = self._pending_map
+        if p is None:
+            return False
+        probe = p["probe"]
+        if probe is not None:
+            if block:
+                probe.synchronize()
+            elif not probe.query():
+                return False
+        self._adopt_map_snapshot()
+        self.adopted_map_idx = p["idx"]
+        self._pending_map = None
+        return True
+
+    def _maybe_dispatch_map(self, idx: int, frame, images_dev) -> bool:
+        """The reference's mapper-side rule: a new mapping call starts once
+        the previous one completed AND tracking advanced at least
+        ``every_frame // 2`` frames past the last mapped index ('free': any
+        advance). It maps the latest tracked frame."""
+        if self._pending_map is not None and not self._adopt_pending_map():
+            return False
+        gap = idx - self._last_map_dispatch_idx
+        min_gap = 1 if self.sync_method == "free" else max(1, self.m_cfg.every_frame // 2)
+        if gap < min_gap:
+            return False
+        self._dispatch_concurrent_map(idx, frame, images_dev)
+        return True
+
+    def _dispatch_concurrent_map(self, idx: int, frame, images_dev=None):
+        """Enqueue one concurrent mapping call and its bookkeeping."""
+        self._map_frame(idx, frame, init=False, images_dev=images_dev)
+        self._pending_map = {"idx": idx, "probe": self._map_probe()}
+        self._last_map_dispatch_idx = idx
+        self.n_concurrent_maps += 1
+
+    def _loose_wait(self, idx: int):
+        """The reference's tracker-side bound: wait while the adopted map is
+        more than ``every_frame + every_frame // 2`` frames behind the frame
+        about to be tracked."""
+        every = self.m_cfg.every_frame
+        while self.adopted_map_idx < idx - every - every // 2:
+            if self._adopt_pending_map(block=True):
+                continue
+            # the mapper idle but stale (only after a resume): map the newest
+            # tracked frame so that the bound can hold
+            if self._last_map_dispatch_idx < idx - 1 and idx >= 1:
+                self._dispatch_concurrent_map(idx - 1, self.frame_reader[idx - 1])
+            else:
+                break
+
     def _async_map_ok(self) -> bool:
         """True when a steady mapping call can take the tracker's DEVICE pose
         without the host ever reading it: pose-free selection (at most one
@@ -451,6 +581,16 @@ class EvenNICERSLAM:
                    images_dev=None):
         m = self.m_cfg
         gt_event_int = self._integrated_event(idx) if self.use_events else frame.event
+        if self.concurrent:
+            # the call's inputs on the map group, so that it runs there
+            map_dev = self.groups.map_lead
+            if images_dev is None:
+                # a call without the frame's upload (the rescue in _loose_wait)
+                images_dev = (frame.color, frame.depth)
+            images_dev = tuple(torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                                               else x).to(map_dev) for x in images_dev)
+            if isinstance(gt_event_int, torch.Tensor):
+                gt_event_int = gt_event_int.to(map_dev)
         # steady state: the call takes the tracker's device pose; otherwise
         # one pose read a call
         fast = not init and not color_refine and self._async_map_ok()
@@ -459,6 +599,8 @@ class EvenNICERSLAM:
             cur_c2w = self._pose(idx)
             if isinstance(cur_c2w, np.ndarray):
                 cur_c2w = cur_c2w.copy()
+            elif self.concurrent:
+                cur_c2w = cur_c2w.to(self.groups.map_lead)
         else:
             cur_c2w = self._pose_np(idx).copy()
 
@@ -480,6 +622,7 @@ class EvenNICERSLAM:
                 vis_inside = mvis.inside_freq
 
                 def vis_cb(it, g, d, cams):
+                    g, d = replicate((g, d), self.device)
                     mvis.vis(idx, it, frame.depth, frame.color, self._pose_np(idx), g, d)
 
         mapper = self.mapper
@@ -507,22 +650,25 @@ class EvenNICERSLAM:
         self.mapping_idx = idx
         self.mapping_cnt += 1
         self.pre_gt_color_mapper = images_dev[0] if images_dev is not None else frame.color
-        if fast and self.device.type == "cuda":
+        if fast and self.mapper.device.type == "cuda":
             # hold the host's run-ahead: with no pose read, nothing else
             # paces it, and each call in flight holds its own grids and
             # window buffers on the device. Waiting for the call
             # MAX_INFLIGHT_MAPS calls back waits, in steady state, for work
-            # already done, so the device queue never runs dry.
+            # already done, so the device queue never runs dry. Concurrent
+            # mode: a call is enqueued only once the previous one completed,
+            # so this holds the TRACKER's run-ahead (under 'free' no lag
+            # bound does).
             done = torch.cuda.Event()
-            done.record()
+            done.record(torch.cuda.current_stream(self.mapper.device))
             self._inflight_maps.append(done)
             while len(self._inflight_maps) > MAX_INFLIGHT_MAPS:
                 self._inflight_maps.popleft().synchronize()
 
     def step(self, idx: int) -> bool:
-        """Process frame ``idx`` through the strict schedule; returns whether
-        it was mapped. In steady state this only enqueues device work: the
-        frame was uploaded ahead of time by the reader's worker thread."""
+        """Process frame ``idx`` through the schedule; returns whether it was
+        mapped. In steady state this only enqueues device work: the frame was
+        uploaded ahead of time by the reader's worker thread."""
         frame, dev = self.frame_reader.get_with_device(idx)
         self.gt_c2w_list[idx] = frame.c2w
         gt_color, gt_depth, gt_event = dev
@@ -534,14 +680,31 @@ class EvenNICERSLAM:
                     self.tracker.reset_event_integration(frame.event.shape)
                 with self.timers.phase("map"):
                     self._map_frame(idx, frame, init=True, images_dev=(gt_color, gt_depth))
+                    if self.concurrent:
+                        # the reference tracks only after the first mapping
+                        # call: adopt it before frame 1
+                        self._pending_map = {"idx": 0, "probe": self._map_probe()}
+                        self._last_map_dispatch_idx = 0
+                        self.n_concurrent_maps += 1
+                        self._adopt_pending_map(block=True)
                 self.tracker.pre_gt_color = gt_color
         else:
             with self.timers.phase("track"):
+                if self.concurrent:
+                    self._adopt_pending_map(block=False)
+                    if self.sync_method == "loose":
+                        with self.timers.phase("loose_wait"):
+                            self._loose_wait(idx)
+                    self.lag_trace.append((idx, self.adopted_map_idx))
+                track_grids, track_decoders = self._track_state()
                 c2w = self.tracker.track(
-                    idx, gt_color, gt_depth, gt_event, self._pose(idx - 1),
-                    self._pose(idx - 2) if idx >= 2 else None,
-                    self.decoders, self.grids, seed=idx)
+                    idx, gt_color, gt_depth, gt_event, self._init_pose(idx - 1),
+                    self._init_pose(idx - 2) if idx >= 2 else None,
+                    track_decoders, track_grids, seed=idx)
                 self._set_pose(idx, c2w)
+                if self.concurrent:
+                    self._track_pose_cache[idx] = c2w
+                    self._track_pose_cache.pop(idx - 3, None)
                 boundary = idx % self.m_cfg.every_frame == 0 or idx == self.n_img - 1
                 if boundary and (idx == self.n_img - 1 or not self._async_map_ok()):
                     # a synced mapping call (or the final colour refinement)
@@ -561,11 +724,28 @@ class EvenNICERSLAM:
                 gt_ev_lo = pred_ev = None
                 if self.use_events and self.tracker.pre_gt_color is not None:
                     gt_ev_lo, pred_ev = self._predict_event_for_vis(idx, gt_depth)
-                vis.vis(idx, 0, gt_depth, gt_color, self._pose_np(idx), self.grids,
-                        self.decoders, gt_event=gt_ev_lo, pred_event=pred_ev)
+                g, d = self._track_state()
+                vis.vis(idx, 0, gt_depth, gt_color, self._pose_np(idx), g, d,
+                        gt_event=gt_ev_lo, pred_event=pred_ev)
 
         mapped = False
-        if idx != 0 and idx % self.m_cfg.every_frame == 0:
+        if self.concurrent and idx != 0:
+            with self.timers.phase("map"):
+                if idx == self.n_img - 1:
+                    # the last frame is always mapped: wait for the call in
+                    # flight, then map it
+                    self._adopt_pending_map(block=True)
+                    if self._last_map_dispatch_idx != idx:
+                        self._map_frame(idx, frame, init=False,
+                                        images_dev=(gt_color, gt_depth))
+                        self._last_map_dispatch_idx = idx
+                        self.n_concurrent_maps += 1
+                        self.adopted_map_idx = idx
+                        self._adopt_map_snapshot()
+                    mapped = True
+                else:
+                    mapped = self._maybe_dispatch_map(idx, frame, (gt_color, gt_depth))
+        elif idx != 0 and idx % self.m_cfg.every_frame == 0:
             with self.timers.phase("map"):
                 self._map_frame(idx, frame, init=False, images_dev=(gt_color, gt_depth))
             mapped = True
@@ -618,6 +798,7 @@ class EvenNICERSLAM:
 
     def _get_mesh(self, path: str, idx: int, **kw):
         self.mapper.keyframes.sync_host_poses()
-        return self.mesher.get_mesh(path, self.grids, self.decoders,
+        grids, decoders = replicate((self.grids, self.decoders), self.device)
+        return self.mesher.get_mesh(path, grids, decoders,
                                     self.mapper.keyframes.frames, self.estimate_c2w_list,
                                     idx, **kw)

@@ -2,7 +2,8 @@
 ``evennicer_slam_tpu/slam/tracker.py``).
 
 ``tracking_loss`` is everything one iteration computes for a given camera
-pose (the JAX package's ``_tracking_loss`` without its device-mesh argument);
+pose (the JAX package's ``_tracking_loss``; its ``dp`` splits every ray
+batch over device slots, ``render/renderer.py::render_rays_dp``);
 ``track_frame`` is the optimisation around it (the JAX package's
 ``track_frame_jit``): pose initialisation by constant-speed extrapolation,
 ``cfg.iters`` Adam steps on the pose with autograd through the whole score,
@@ -51,7 +52,8 @@ from evennicer_slam_tpu_torch.models.decoders import (
 from evennicer_slam_tpu_torch.models.eventnet import inference_event
 from evennicer_slam_tpu_torch.ops.gaussian_blur import gaussian_blur
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest
-from evennicer_slam_tpu_torch.render.renderer import RenderSettings, render_rays
+from evennicer_slam_tpu_torch.parallel.sharding import replicate
+from evennicer_slam_tpu_torch.render.renderer import RenderSettings, render_rays_dp
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.utils.optim import adam_init, adam_update
 from evennicer_slam_tpu_torch.utils.runtime import require_on, resolve_device
@@ -221,6 +223,8 @@ def tracking_loss(
     generator: Optional[torch.Generator] = None,
     pixel_ij: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     device=None,
+    dp=None,
+    replicas=None,
 ):
     """One iteration's losses as a function of the camera tensor
     ``[quat, t]``: returns (total, aux) with ``aux`` holding ``rgbd`` (on
@@ -229,7 +233,10 @@ def tracking_loss(
 
     The RGB-D pixels are drawn from ``generator`` unless ``pixel_ij`` hands
     the (i, j) draws in. ``device=None`` means the CUDA device; the tensors
-    must lie on the device the call runs on."""
+    must lie on the device the call runs on. ``dp`` (a list of device slots,
+    or None) renders every ray batch split over the slots, from
+    ``replicas`` (the map on each slot) when given; the losses are computed
+    on ``device`` from the gathered outputs, as at dp = 1."""
     device = resolve_device(device)
     require_on(device, cam_tensor, bound)
     c2w = pose_matrix_from_tensor(cam_tensor)
@@ -249,9 +256,9 @@ def tracking_loss(
         else:
             inside = torch.ones_like(b_depth, dtype=torch.bool)
 
-        depth, var, color = render_rays(
+        depth, var, color = render_rays_dp(
             decoders, grids, rays_o, rays_d, bound, "color", settings,
-            gt_depth=b_depth,
+            gt_depth=b_depth, dp=dp, replicas=replicas,
         )
         var = var.detach()
         tmp = torch.abs(b_depth - depth) / torch.sqrt(var + 1e-10)
@@ -274,9 +281,9 @@ def tracking_loss(
         rays_o, rays_d = get_rays_rescale(
             cam.H, cam.W, lo_h, lo_w, cam.fx, cam.fy, cam.cx, cam.cy, c2w
         )
-        _, _, cur_color_lo = render_rays(
+        _, _, cur_color_lo = render_rays_dp(
             decoders, grids, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
-            bound, "color", settings, gt_depth=gt_depth_lo_flat,
+            bound, "color", settings, gt_depth=gt_depth_lo_flat, dp=dp, replicas=replicas,
         )
         cur_color_lo = cur_color_lo.reshape(lo_h, lo_w, 3)
         if cfg.predictor == "esim":
@@ -394,6 +401,7 @@ def track_frame(
     calibrate: bool = False,
     pixel_draws: Optional[PixelDraws] = None,
     device=None,
+    dp=None,
 ):
     """Full per-frame tracking: pose init by constant-speed extrapolation
     followed by ``cfg.iters`` Adam steps, all on the device; the host reads
@@ -408,6 +416,9 @@ def track_frame(
     a fresh Adam state, measures the event basin's offset; on event-only
     frames the caller passes the measured bias (zeros until one exists) and
     ``bias_in * bias_scale`` is subtracted from the winning pose tensor.
+
+    ``dp`` (device slots, or None) splits every render's rays over the
+    slots; the frozen map reaches each slot once a frame.
 
     ``device=None`` means the CUDA device. Returns (best_cam_tensor,
     best_c2w [4, 4], per-iteration loss dict, bias_out [7])."""
@@ -429,6 +440,7 @@ def track_frame(
         if "fc_packed" not in grids:
             grids = pack_grids_for_tracking(grids)
         grids = pack_decoders_for_tracking(decoders, grids)
+    replicas = None if dp is None else [replicate((decoders, grids, bound), d) for d in dp]
 
     def loss_fn(cfg_, rgbd_):
         def fn(x, pixel_ij):
@@ -436,7 +448,8 @@ def track_frame(
                 x, decoders, grids, eventnet, bound, gt_color, gt_depth,
                 gt_event_lo, prev_color_lo, gt_depth_lo_flat, gt_mask_lo,
                 cfg_, cam, settings, rgbd_, event,
-                generator=generator, pixel_ij=pixel_ij, device=device)
+                generator=generator, pixel_ij=pixel_ij, device=device,
+                dp=dp, replicas=replicas)
         return fn
 
     # criterion: event loss when the event branch runs (it is always
@@ -485,7 +498,8 @@ def _prep_event_inputs(gt_event_integrate, gt_event, pre_gt_color, gt_depth,
 class Tracker:
     """Host-side front end of tracking: motion model, event integration, frame
     loop bookkeeping. All math happens in :func:`track_frame`.
-    ``device=None`` means the CUDA device."""
+    ``device=None`` means the CUDA device; ``dp`` (device slots, or None)
+    splits the rays of every render over the slots."""
 
     def __init__(
         self,
@@ -495,8 +509,10 @@ class Tracker:
         bound: np.ndarray,
         eventnet: Optional[Dict] = None,
         device=None,
+        dp=None,
     ):
         self.device = resolve_device(device)
+        self.dp = dp
         self.cfg = cfg
         self.cam = cam
         self.settings = settings
@@ -620,6 +636,7 @@ class Tracker:
             calibrate,
             pixel_draws=pixel_draws,
             device=dev,
+            dp=self.dp,
         )
         self.last_losses = losses
         if calibrate:

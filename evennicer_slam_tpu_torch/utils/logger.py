@@ -91,14 +91,20 @@ class CheckpointLogger:
         set it), the event integral has just been reset, and the mapper's
         previous colour is frame ``idx``'s (``_map_frame`` set it). The
         keyframe pickle is read with ``pickle``: restore only checkpoints
-        this program wrote."""
+        this program wrote.
+
+        The scene state and the keyframe registry go to the mapper's device;
+        in concurrent (loose / free) mode that is the map group's, and the
+        adoption bookkeeping restarts at the checkpoint's frame: the
+        tracker's snapshot is taken again before its next frame."""
         from evennicer_slam_tpu_torch.slam.keyframes import KeyframeStore
 
         dev = slam.device
+        map_dev = slam.mapper.device
         with np.load(path, allow_pickle=False) as npz:
             data = {k: npz[k] for k in npz.files}
-        slam.grids = _unflatten_into(slam.grids, "grids", data, dev)
-        slam.decoders = _unflatten_into(slam.decoders, "decoders", data, dev)
+        slam.grids = _unflatten_into(slam.grids, "grids", data, map_dev)
+        slam.decoders = _unflatten_into(slam.decoders, "decoders", data, map_dev)
         slam.estimate_c2w_list = data["estimate_c2w_list"]
         slam.gt_c2w_list = np.asarray(data["gt_c2w_list"], np.float32)
         idx = int(data["idx"])
@@ -106,12 +112,17 @@ class CheckpointLogger:
         if os.path.exists(kf_path):
             with open(kf_path, "rb") as f:
                 kf = pickle.load(f)
-            store = KeyframeStore(device=dev)
+            store = KeyframeStore(device=map_dev)
             store.frames = kf["keyframes"]
             slam.mapper.keyframes = store
             slam.mapper.selected_keyframes = kf.get("selected_keyframes") or {}
         slam.idx = idx
         slam.mapping_idx = idx
+        if getattr(slam, "concurrent", False):
+            slam._track_grids = slam._track_decoders = None
+            slam._pending_map = None
+            slam.adopted_map_idx = idx
+            slam._last_map_dispatch_idx = idx
         frame = slam.frame_reader[idx]
         slam.tracker.pre_gt_color = torch.from_numpy(np.array(frame.color)).to(dev)
         if slam.use_events:

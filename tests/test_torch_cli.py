@@ -2,11 +2,13 @@
 a tiny scene (36x48, a handful of frames) from a config file to checkpoints,
 the final meshes and the trajectory error of the checkpoint; ``--resume``;
 ``--imap`` and the along-normal mesh colours; ``enable_vis``; ``--viz_port``,
-not ported yet, refused before any frame."""
+the browser viewer serving the run."""
 
+import json
 import os
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import yaml
 from evennicer_slam_tpu_torch import run as port_run
 from evennicer_slam_tpu_torch.data.synthetic import make_synthetic_replica
 from evennicer_slam_tpu_torch.mesh.trimesh_lite import Mesh
+from evennicer_slam_tpu_torch.tools import viz_server
 from evennicer_slam_tpu_torch.tools.eval_ate import evaluate_checkpoint
 from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger
 
@@ -83,13 +86,15 @@ def test_cli_resume_continues_from_the_latest_checkpoint(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,changes,match", [
-    (["--viz_port", "8123"], {}, "ROADMAP Queue 1 item 4"),
+    (["--viz_port", "0"], {}, "ROADMAP Queue 1 item 4"),
     ([], {"enable_vis": True}, "enable_vis: false"),
 ], ids=["viz_port", "enable_vis"])
-def test_unported_options_raise_before_any_frame(tmp_path, flags, changes, match):
-    """``--viz_port`` (the viewer) is still refused before any frame, with
-    nothing written. ``enable_vis: true``, refused until the visualiser was
-    ported, now runs to its end and writes the tracking panels of frame 2
+def test_unported_options_raise_before_any_frame(tmp_path, monkeypatch, flags, changes, match):
+    """Both options this test once saw refused run to their end now.
+    ``--viz_port`` (the viewer, ROADMAP Queue 1 item 4) serves the output
+    directory while the run goes on: after a 3-frame run ``/state.json``
+    reports the last frame and ``/mesh.bin`` the final mesh.
+    ``enable_vis: true`` writes the tracking panels of frame 2
     (``tracking.vis_freq`` 2 here) and the mapping panels of frame 0."""
     if changes.get("enable_vis"):
         changes = dict(changes, tracking={"vis_freq": 2, "iters": 2, "pixels": 40,
@@ -97,9 +102,30 @@ def test_unported_options_raise_before_any_frame(tmp_path, flags, changes, match
     cfg = write_config(tmp_path, 3, **changes)
     out = str(tmp_path / "out")
     if not changes.get("enable_vis"):
-        with pytest.raises(NotImplementedError, match=match):
-            port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
-        assert not os.path.exists(out)  # nothing run, nothing written
+        servers = []
+        serve = viz_server.serve
+
+        def kept(*a, **kw):
+            servers.append(serve(*a, **kw))
+            return servers[-1]
+
+        monkeypatch.setattr(viz_server, "serve", kept)
+        est = port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
+        assert np.isfinite(est).all() and len(servers) == 1
+        httpd, watcher = servers[0]
+        try:
+            watcher.refresh()  # the poll thread's next look, now
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            with urllib.request.urlopen(url + "/state.json", timeout=30) as r:
+                state = json.loads(r.read())
+            assert state["idx"] == 2 and len(state["est"]) == 3
+            # the newest of the sorted mesh files
+            assert state["mesh_path"] == "final_mesh_eval_rec.ply" and state["n_faces"] > 0
+            with urllib.request.urlopen(url + "/mesh.bin", timeout=30) as r:
+                assert len(r.read()) > 16 + 40 * state["n_verts"]
+        finally:
+            httpd.shutdown()
+            watcher.stop()
         return
     est = port_run.main([cfg, "--output", out, "--device", "cpu"] + flags)
     assert np.isfinite(est).all()

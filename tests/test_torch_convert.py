@@ -166,7 +166,9 @@ def test_every_port_module_imports_here():
                 "tools.eval_ate", "tools.eval_recon", "tools.cull_mesh",
                 "tools.validate_synthetic", "data.jpeg", "data.undistort", "data.exr",
                 "utils.visualizer", "models.eventnet_train", "tools.train_eventnet",
-                "tools.predict_event", "tools.event_ablation", "tools.prep_own_data"):
+                "tools.predict_event", "tools.event_ablation", "tools.prep_own_data",
+                "parallel.sharding", "parallel.tp_example", "tools.viz", "tools.viz_server",
+                "tools.loose_quality", "visualizer"):
         assert f"evennicer_slam_tpu_torch.{new}" in names
     for name in names:
         __import__(name)

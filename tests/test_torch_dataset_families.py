@@ -9,8 +9,9 @@ families with the eight of ``configs/rpg/rpg.yaml``.
 
 Also the port's EXR reader (``data/exr.py``) against the JAX one on FLOAT
 and HALF channels with NONE, ZIPS and ZIP compression, and every YAML under
-``configs/`` accepted by the port's ``load_config`` + ``check_supported``
-on one card.
+``configs/`` accepted by the port's ``load_config`` and its device plan
+(``parallel/sharding.py``) on one slot; the demo configuration's loose
+split against the JAX package's ``concurrent_submeshes``.
 """
 
 import glob
@@ -26,10 +27,11 @@ from evennicer_slam_tpu.data import datasets as jd
 from evennicer_slam_tpu.data import exr as jexr
 from evennicer_slam_tpu.data.exr import write_exr_float
 from evennicer_slam_tpu.data.synthetic import make_synthetic_replica
+from evennicer_slam_tpu.parallel.sharding import concurrent_submeshes
 from evennicer_slam_tpu_torch.config import load_config
 from evennicer_slam_tpu_torch.data import datasets as td
 from evennicer_slam_tpu_torch.data import exr as texr
-from evennicer_slam_tpu_torch.slam.pipeline import check_supported
+from evennicer_slam_tpu_torch.parallel.sharding import concurrent_groups, pipeline_dp_devices
 from test_datasets import CAM, H, W, write_png_frame
 from torch_parity import cap_threads
 
@@ -265,14 +267,25 @@ def test_exr_reader_equals_the_jax_reader(tmp_path, ptype, comp):
 
 
 def test_every_shipped_config_is_supported():
+    """Every shipped configuration builds its device plan: on one slot none
+    goes concurrent or data-parallel. The demo configuration's loose
+    schedule with ``parallel.map_devices`` splits 2 and 4 slots as the JAX
+    package's rule does (the last k slots map; ``'auto'`` is max(1, n // 4)),
+    and 8 slots exactly as the JAX package splits its eight devices."""
     paths = sorted(glob.glob(os.path.join(ROOT, "configs", "**", "*.yaml"), recursive=True))
     assert len(paths) >= 50
     for path in paths:
-        check_supported(load_config(path), n_devices=1)
+        cfg = load_config(path)
+        assert concurrent_groups(cfg, ["cpu"]) is None, path
+        assert pipeline_dp_devices(cfg, ["cpu"]) is None, path
     demo = load_config(os.path.join(ROOT, "configs", "Demo", "demo.yaml"))
     assert demo["sync_method"] == "loose"
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        check_supported(dict(demo, parallel={"map_devices": 1}), n_devices=2)
-    check_supported(dict(demo, parallel={"map_devices": "auto"}), n_devices=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        check_supported(dict(demo, parallel={"map_devices": "auto"}), n_devices=4)
+    plan = concurrent_groups(dict(demo, parallel={"map_devices": 1}), ["cpu"] * 2)
+    assert (plan.n_track, plan.n_map, plan.track_dp, plan.map_dp) == (1, 1, None, None)
+    assert concurrent_groups(dict(demo, parallel={"map_devices": "auto"}), ["cpu"]) is None
+    plan = concurrent_groups(dict(demo, parallel={"map_devices": "auto"}), ["cpu"] * 4)
+    assert (plan.n_track, plan.n_map) == (3, 1) and len(plan.track_dp) == 3
+    for want in (1, 2, "auto"):
+        change = dict(demo, parallel={"map_devices": want})
+        plan, ref = concurrent_groups(change, ["cpu"] * 8), concurrent_submeshes(change)
+        assert (plan.n_track, plan.n_map) == (ref.n_track, ref.n_map)

@@ -210,23 +210,22 @@ def strict_three(tmp_path_factory):
     ({"enable_vis": True}, "item 4"),
 ])
 def test_unported_options_raise_before_the_first_frame(tmp_path, strict_three, change, item):
-    """Of the five options this test once saw refused, data parallelism
-    still raises before the first frame, naming its ROADMAP item. On one
-    device group ``sync_method: loose|free`` and ``parallel.map_devices``
-    run the strict schedule, as the JAX package's pipeline does there
-    (``check_supported`` raises only where the JAX package would go
-    concurrent): three frames with poses bit-equal to the strict run's.
-    ``enable_vis`` runs and writes the visualiser's panels."""
+    """The five options this test once saw refused (ROADMAP Queue 1 items 4
+    and 5, both ported) all run now. On one device slot (the CPU alone)
+    ``sync_method: loose|free`` and ``parallel.map_devices`` find no second
+    slot group and run the strict schedule, and ``parallel.data_parallel: 2``
+    is clamped to the one slot, as the JAX package clamps it to its devices:
+    three frames with poses bit-equal to the strict run's. ``enable_vis``
+    runs and writes the visualiser's panels."""
     cfg = tiny_cfg(str(tmp_path / "scene"), 3, events=False)
     cfg["data"]["output"] = str(tmp_path / "out")
     cfg.update(change)
-    if "data_parallel" in change.get("parallel", {}):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-            EvenNICERSLAM(cfg, device="cpu")
-        return
     if change.get("enable_vis"):
         cfg["tracking"]["vis_freq"] = cfg["mapping"]["vis_freq"] = 2
-    est = EvenNICERSLAM(cfg, device="cpu").run(mesh=False, checkpoint=False)
+    slam = EvenNICERSLAM(cfg, device="cpu")
+    assert not slam.concurrent and slam.dp_devices is None
+    assert slam.devices == [torch.device("cpu")]
+    est = slam.run(mesh=False, checkpoint=False)
     np.testing.assert_array_equal(est, strict_three)
     if change.get("enable_vis"):
         out = cfg["data"]["output"]

@@ -94,12 +94,13 @@ def record_integrals(slam):
     return seen
 
 
-def port_pipeline(tmp, name, n_frames, events, state, nice=True, **overrides):
+def port_pipeline(tmp, name, n_frames, events, state, nice=True, devices=None, **overrides):
     """The port's pipeline on the CPU from the JAX pipeline's initial state,
-    with the JAX package's tracker and mapper draws handed in."""
+    with the JAX package's tracker and mapper draws handed in. ``devices``:
+    the pipeline's device slots (default: the CPU alone)."""
     cfg = tiny_cfg(os.path.join(tmp, "scene"), n_frames, events, **overrides)
     cfg["data"]["output"] = os.path.join(tmp, name)
-    slam = EvenNICERSLAM(cfg, nice=nice, device="cpu")
+    slam = EvenNICERSLAM(cfg, nice=nice, device="cpu", devices=devices)
     convert.pipeline_state_from_numpy(slam, *state)
     use_jax_draws(slam)
     return slam
