@@ -1,0 +1,4 @@
+"""frame_wait_ms.nice: ``frame_wait_ms`` in a host-bound cell, where it is read beside
+the cell's memory and set-up, the end-to-end metrics that hold a bound there."""
+
+from portbench.metrics.frame_wait_ms import read  # noqa: F401

@@ -1,0 +1,4 @@
+"""map_call_device_ms.nice: ``map_call_device_ms`` in a host-bound cell, where it is read beside
+the cell's memory and set-up, the end-to-end metrics that hold a bound there."""
+
+from portbench.metrics.map_call_device_ms import read  # noqa: F401
