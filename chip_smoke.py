@@ -883,6 +883,19 @@ def depth_l1(renderer, decoders, grids, f):
     return float(((d - ref).abs() * ok).sum() / ok.sum())
 
 
+def traced(slam):
+    """The program's tracer on from here, its totals cleared."""
+    slam.tracer.reset()
+    slam.tracer.enable()
+
+
+def host_dispatch(slam):
+    """Host seconds enqueuing tracking and mapping calls (``slam.track`` and
+    ``slam.map`` spans); the tracer off again."""
+    slam.tracer.disable()
+    return {k: v for k, v in slam.tracer.summary().items() if k.startswith(("track_", "map_"))}
+
+
 @contextlib.contextmanager
 def count_syncs(out):
     """Record the host synchronisations inside the block (PyTorch's sync
@@ -1269,6 +1282,7 @@ def pipeline_from_disk(frag, dev, ate_in_memory):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     slam = EvenNICERSLAM(cfg, device=dev)
+    traced(slam)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     reset_launches()
@@ -1345,7 +1359,7 @@ def pipeline_from_disk(frag, dev, ate_in_memory):
            "fwd_launches": n_fwd, "bwd_launches": n_bwd, "expected_launches": want_launches,
            "syncs_in_steady_block": len(syncs), "sync_sites": sorted(set(syncs))[:6],
            "peak_memory_gib": peak, "checkpoint_bitwise": same, "checkpoint_s": ckpt_s,
-           "host_dispatch": slam.timers.summary()}
+           "host_dispatch": host_dispatch(slam)}
     say("pipeline from disk: " + json.dumps(res))
     failed = []
     if not ate <= ATE_BENCH_BAR:
@@ -2032,6 +2046,7 @@ def block_speed(frag, dev, label):
     cfg["data"]["output"] = os.path.join(JPEG_SCENE_DIR, f"output_speed_{label}")
     cfg["mapping"]["iters_first"] = SPEED_ITERS_FIRST
     slam = EvenNICERSLAM(cfg, device=dev)
+    traced(slam)
     for idx in range(PIPE_WARM):
         slam.step(idx)
     torch.cuda.synchronize()
@@ -2042,7 +2057,7 @@ def block_speed(frag, dev, label):
             slam.step(idx)
         torch.cuda.synchronize()
         fps.append(PIPE_BLOCK / (time.perf_counter() - t0))
-    return fps, slam.timers.summary()
+    return fps, host_dispatch(slam)
 
 
 def vis_run(jfrag, dev):
@@ -2484,6 +2499,7 @@ def group_run(frag, dev, sync):
     cfg["mapping"]["iters_first"] = GROUP_ITERS_FIRST
     cfg["data"]["output"] = os.path.join(SCENE_DIR, f"output_{sync}")
     slam = EvenNICERSLAM(cfg, device=dev, devices=[dev] * 2)
+    traced(slam)
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2495,7 +2511,8 @@ def group_run(frag, dev, sync):
     err = np.linalg.norm(est[:, :3, 3].astype(np.float64) - gt[:, :3, 3], axis=1)
     every = slam.m_cfg.every_frame
     bound_held = all(a >= i - every - every // 2 for i, a in slam.lag_trace)
-    t = slam.timers.total
+    t = slam.tracer.total
+    slam.tracer.disable()
     tcfg = slam.t_cfg
     want = sum(tcfg.iters * (2 if i % tcfg.rgbd_every_frame == 0 else 1)
                for i in range(1, GROUP_FRAMES))
@@ -2507,8 +2524,9 @@ def group_run(frag, dev, sync):
            "snapshot_on_cuda": slam._track_grids is not None
            and all(x.is_cuda for x in tree_leaves(slam._track_grids)),
            "ate_rmse_m": float(np.sqrt(np.mean(err ** 2))), "ate_bar_m": ATE_BENCH_BAR,
-           "run_s": run_s, "host_map_enqueue_s": t["map"], "host_track_s": t["track"],
-           "host_loose_wait_s": t.get("loose_wait", 0.0),
+           "run_s": run_s, "host_map_enqueue_s": t["slam.map"],
+           "host_track_s": t["slam.track"],
+           "host_loose_wait_s": t.get("slam.sync.loose_wait", 0.0),
            "fwd_launches": n_fwd, "bwd_launches": n_bwd, "expected_launches": want}
     say(f"{sync} schedule on two slots of the card: " + json.dumps(res))
     failed = []

@@ -11,6 +11,13 @@ which waits for that event on the device, not on the host. Decoding
 (``zlib``, numpy) and the copies release the interpreter lock, so the overlap
 is real. Random access falls through to the wrapped reader.
 
+Spans (``utils/telemetry.py``): ``slam.reader.get`` around each
+:meth:`PrefetchingReader.get_with_device` on the caller's thread,
+``slam.reader.decode`` around the worker's decode, compaction and upload of
+a frame (carrying that frame's index); the counters ``slam.reader.ready``
+and ``slam.reader.waited`` count the reads whose frame the worker had
+finished, and those that waited for it.
+
 On the CPU device (the tests) the arrays are copied into tensors; nothing is
 pinned, as a CPU-only build cannot pin memory.
 """
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 
 class DeviceFrame(NamedTuple):
@@ -138,8 +146,9 @@ class PrefetchingReader:
 
     def _prefetch(self, idx: int, need_device: bool):
         try:
-            frame = self._reader[idx]
-            dev = self._put(frame) if need_device else None
+            with TRACER.span("slam.reader.decode", frame=idx, detached=True):
+                frame = self._reader[idx]
+                dev = self._put(frame) if need_device else None
         except Exception:  # noqa: BLE001 - the caller's own read of idx repeats it and raises
             return
         with self._lock:
@@ -150,6 +159,8 @@ class PrefetchingReader:
                 self._cache.pop(k)
 
     def _fetch(self, idx: int, need_device: bool):
+        if self._thread is not None:
+            TRACER.add("slam.reader.waited" if self._thread.is_alive() else "slam.reader.ready")
         self._join()
         with self._lock:
             if idx in self._pinned:
@@ -187,5 +198,6 @@ class PrefetchingReader:
 
     def get_with_device(self, idx: int):
         """(host Frame, (color, depth, event) float32 tensors on the device)."""
-        frame, dev = self._fetch(idx, need_device=True)
-        return frame, expand_device_frame(dev)
+        with TRACER.span("slam.reader.get"):
+            frame, dev = self._fetch(idx, need_device=True)
+            return frame, expand_device_frame(dev)

@@ -35,6 +35,7 @@ from evennicer_slam_tpu_torch.ops.grid_sample import (
     sample_packed_trilinear,
 )
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 EMBEDDING_SIZE = 93
 FOURIER_SCALE = 25.0
@@ -387,7 +388,17 @@ def nice_forward_packed(
     tensors on the card, the plain PyTorch version for tensors on the CPU.
     Any other trio runs the same arithmetic as separate PyTorch ops. Where
     ``grids`` carries the trio's packed weights
-    (:func:`pack_decoders_for_tracking`) the kernels take them from there."""
+    (:func:`pack_decoders_for_tracking`) the kernels take them from there.
+
+    The call is the span ``slam.decode.fwd``, its backward the span
+    ``slam.decode.bwd`` (``utils/telemetry.py``)."""
+    (p,), finish = TRACER.backward_bracket("slam.decode.bwd", p)
+    with TRACER.span("slam.decode.fwd"):
+        (out,) = finish(_nice_forward_packed(decoders, grids, p, bound))
+    return out
+
+
+def _nice_forward_packed(decoders, grids, p, bound):
     from evennicer_slam_tpu_torch.ops import fused_decode
 
     if "fc_packed" not in grids:
@@ -419,8 +430,10 @@ def nice_forward_packed(
 
 
 def imap_forward(decoders: Dict[str, Any], p: torch.Tensor) -> torch.Tensor:
-    """iMAP single-MLP forward -> raw [N, 4] (rgb, density)."""
-    return _mlp_forward(decoders["imap"], p, None)
+    """iMAP single-MLP forward -> raw [N, 4] (rgb, density); the span
+    ``slam.decode.imap``."""
+    with TRACER.span("slam.decode.imap"):
+        return _mlp_forward(decoders["imap"], p, None)
 
 
 def decoder_forward(

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 BN_EPS = 1e-5
 
@@ -139,11 +140,15 @@ def inference_event(
     """Predicted event image for a (previous, current) intensity pair.
 
     img1/img2: [H, W, 3] in [0, 1]. Returns (event [H, W, 2], mask
-    [1, H, W, 2]) — prediction = raw events x existence probability."""
-    pair = torch.cat([img1, img2], dim=-1)[None]
-    events, mask = eventnet_forward(params, pair)
-    mask_prob = mask[..., 1:2]
-    return (events * mask_prob)[0], mask
+    [1, H, W, 2]) — prediction = raw events x existence probability. The
+    call is the span ``slam.eventnet``, its backward the span
+    ``slam.eventnet.bwd`` (``utils/telemetry.py``)."""
+    (img1, img2), finish = TRACER.backward_bracket("slam.eventnet.bwd", img1, img2)
+    with TRACER.span("slam.eventnet"):
+        pair = torch.cat([img1, img2], dim=-1)[None]
+        events, mask = eventnet_forward(params, pair)
+        mask_prob = mask[..., 1:2]
+        return finish((events * mask_prob)[0], mask)
 
 
 def _param_names():

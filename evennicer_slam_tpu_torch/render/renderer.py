@@ -38,6 +38,7 @@ from evennicer_slam_tpu_torch.models.decoders import decoder_forward
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear
 from evennicer_slam_tpu_torch.parallel.sharding import gather_rows, replicate, shard_rows
 from evennicer_slam_tpu_torch.utils.runtime import require_on, resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 
 class RenderSettings(NamedTuple):
@@ -210,25 +211,27 @@ def render_rays_dp(
     bound) on slot i, when the caller has them already (a frame's frozen
     map); otherwise they are made by a differentiable ``.to``, so the
     gradients of every slot's copy sum back into the parameters. ``dp``
-    None is ``render_rays`` itself."""
-    if dp is None:
-        return render_rays(decoders, grids, rays_o, rays_d, bound, stage, settings,
-                           gt_depth=gt_depth)
-    lead = rays_o.device
-    if stage == "coarse":
-        gt_depth = None
-    far_max = None if gt_depth is None else torch.max(gt_depth * 1.2)
-    if replicas is None:
-        replicas = [replicate((decoders, grids, bound), d) for d in dp]
-    ro, rd = shard_rows(rays_o, dp), shard_rows(rays_d, dp)
-    gd = shard_rows(gt_depth, dp) if gt_depth is not None else [None] * len(dp)
-    outs = []
-    for d, (dec, g, b), o, r, z in zip(dp, replicas, ro, rd, gd):
-        if o.shape[0] == 0:  # fewer rays than slots
-            continue
-        outs.append(render_rays(dec, g, o, r, b, stage, settings, gt_depth=z,
-                                far_max=None if far_max is None else far_max.to(d)))
-    return tuple(gather_rows([out[k] for out in outs], lead) for k in range(3))
+    None is ``render_rays`` itself. The call is the span ``slam.render``
+    (``utils/telemetry.py``)."""
+    with TRACER.span("slam.render"):
+        if dp is None:
+            return render_rays(decoders, grids, rays_o, rays_d, bound, stage, settings,
+                               gt_depth=gt_depth)
+        lead = rays_o.device
+        if stage == "coarse":
+            gt_depth = None
+        far_max = None if gt_depth is None else torch.max(gt_depth * 1.2)
+        if replicas is None:
+            replicas = [replicate((decoders, grids, bound), d) for d in dp]
+        ro, rd = shard_rows(rays_o, dp), shard_rows(rays_d, dp)
+        gd = shard_rows(gt_depth, dp) if gt_depth is not None else [None] * len(dp)
+        outs = []
+        for d, (dec, g, b), o, r, z in zip(dp, replicas, ro, rd, gd):
+            if o.shape[0] == 0:  # fewer rays than slots
+                continue
+            outs.append(render_rays(dec, g, o, r, b, stage, settings, gt_depth=z,
+                                    far_max=None if far_max is None else far_max.to(d)))
+        return tuple(gather_rows([out[k] for out in outs], lead) for k in range(3))
 
 
 def regulation_sigma(

@@ -3,6 +3,7 @@
     python -m evennicer_slam_tpu_torch.run configs/Replica/room0.yaml \
         [--input_folder F] [--event_folder E] [--output O] [--resume] \
         [--end_frame N] [--device cuda|cpu] [--nice | --imap] [--viz_port P]
+        [--spans FILE]
 
 Runs ``EvenNICERSLAM.run`` over the sequence: checkpoints every
 ``mapping.ckpt_freq`` frames, a mesh every ``mapping.mesh_freq`` frames,
@@ -16,6 +17,9 @@ asks for the CPU. ``--imap`` runs iMAP, its configuration over
 under the output directory. ``--viz_port P`` serves the browser viewer
 (``tools/viz_server.py``) on port P (0: any free port) while the run goes
 on, watching the output directory.
+
+``--spans FILE`` turns the program's tracer on (``utils/telemetry.py``) and
+writes its spans as a Chrome trace to FILE at the end of the run.
 """
 
 from __future__ import annotations
@@ -43,6 +47,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="serve the live browser viewer on this port while running")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device of the run (default cuda; cpu for tests)")
+    parser.add_argument("--spans", type=str, default=None,
+                        help="record the program's spans and write them to this "
+                             "Chrome trace file at the end")
     nice_parser = parser.add_mutually_exclusive_group(required=False)
     nice_parser.add_argument("--nice", dest="nice", action="store_true")
     nice_parser.add_argument("--imap", dest="nice", action="store_false",
@@ -58,8 +65,11 @@ def main(argv=None):
     from evennicer_slam_tpu_torch.slam.pipeline import EvenNICERSLAM
     from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger
     from evennicer_slam_tpu_torch.utils.runtime import setup_torch
+    from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
     cfg = load_config(args.config, default_config_path(args.nice))
+    if args.spans:
+        TRACER.enable()
     if args.device.startswith("cuda"):
         setup_torch(verbose=cfg.get("verbose", False))
     slam = EvenNICERSLAM(cfg, args, nice=args.nice, device=args.device)
@@ -76,7 +86,12 @@ def main(argv=None):
         serve(slam.output, port=args.viz_port, blocking=False)
     # a resumed run goes through run() too, so its checkpoint and mesh
     # cadence and its final meshes are those of an uninterrupted run
-    return slam.run(end_frame=args.end_frame, start_frame=start)
+    try:
+        return slam.run(end_frame=args.end_frame, start_frame=start)
+    finally:
+        if args.spans:
+            TRACER.export_chrome(args.spans)
+            TRACER.disable()
 
 
 if __name__ == "__main__":

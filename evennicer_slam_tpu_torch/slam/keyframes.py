@@ -29,13 +29,16 @@ from evennicer_slam_tpu_torch.core.quaternion import (
 )
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 
-def host_array(x) -> np.ndarray:
+def host_array(x, site: str) -> np.ndarray:
     """A host numpy copy of an array or a tensor (a tensor on the card is
-    read back: callers use this on host paths only)."""
+    read back, inside the span ``site``: callers use this on host paths
+    only)."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        with TRACER.span(site):
+            return x.detach().cpu().numpy()
     return np.asarray(x)
 
 
@@ -97,14 +100,14 @@ class KeyframeStore:
         est_is_dev = isinstance(est_c2w, torch.Tensor)
         rec = {
             "idx": idx,
-            "color": host_array(color),
-            "depth": host_array(depth),
-            "event": host_array(event),
+            "color": host_array(color, "slam.sync.keyframe"),
+            "depth": host_array(depth, "slam.sync.keyframe"),
+            "event": host_array(event, "slam.sync.keyframe"),
             # a device pose gets its host copy lazily (sync_host_poses):
             # reading it here would wait for the program that produced it
             "est_c2w": (np.eye(4, dtype=np.float32) if est_is_dev
                         else np.asarray(est_c2w).copy()),
-            "gt_c2w": host_array(gt_c2w).copy(),
+            "gt_c2w": host_array(gt_c2w, "slam.sync.keyframe").copy(),
         }
         if est_is_dev:
             self._ensure_poses_dev(len(self.frames))
@@ -168,7 +171,8 @@ class KeyframeStore:
         read-back). Call before any host consumer of keyframe poses."""
         if not self.host_poses_stale:
             return
-        mats = self._poses_dev.cpu().numpy()
+        with TRACER.span("slam.sync.pose"):
+            mats = self._poses_dev.cpu().numpy()
         # frames appended after the last device write-back are not in the
         # stack yet: their host rows are already the truth
         for i in range(min(len(self.frames), mats.shape[0])):

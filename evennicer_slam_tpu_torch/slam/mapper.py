@@ -99,8 +99,11 @@ from evennicer_slam_tpu_torch.utils.optim import (
     tree_map,
 )
 from evennicer_slam_tpu_torch.utils.runtime import require_on, resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 STAGE_IDS = {"coarse": 0, "middle": 1, "fine": 2, "color": 3}
+# the span of a device read on the mapper's host path
+MAP_HOST = "slam.sync.map_host"
 
 
 class MapperConfig(NamedTuple):
@@ -336,17 +339,18 @@ def _value_and_grad(loss_fn, params, active):
         leaves.append(x)
         return x
 
-    p = tree_map(mark, active, params)
-    loss = loss_fn(p)
-    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
-
     def take(act, x):
         if not act:
             return None
         g = next(grads)
         return torch.zeros_like(x) if g is None else g
 
-    return loss.detach(), tree_map(take, active, p)
+    with TRACER.span("slam.map.iter.loss"):
+        p = tree_map(mark, active, params)
+        loss = loss_fn(p)
+    with TRACER.span("slam.map.iter.grad"):
+        grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True))
+        return loss.detach(), tree_map(take, active, p)
 
 
 def _mapper_event_loss(params, fixed_c2w, bound, prev_color_lo, gt_event_lo,
@@ -436,8 +440,9 @@ def map_frame(
     nice = settings.nice
     params = (grids, decoders, cam_tensors)
     if init_adam:
-        adam = adam_init(params, per_leaf_t=True)
-        adam_ev = adam_init(params, per_leaf_t=True) if use_events else None
+        with TRACER.span("slam.map.init"):
+            adam = adam_init(params, per_leaf_t=True)
+            adam_ev = adam_init(params, per_leaf_t=True) if use_events else None
     cfg_now = cfg._replace(fix_color=cfg.fix_color or fix_color_now)
 
     def active_trees(stage: str, event_update: bool):
@@ -502,11 +507,12 @@ def map_frame(
         n = int(seg_lens[stage])
         if n == 0:
             continue
-        act_main = active_trees(stage, event_update=False)
-        lrs_main = lr_trees(stage, event_update=False)
-        if use_events:
-            act_ev = active_trees(stage, event_update=True)
-            lrs_ev = lr_trees(stage, event_update=True)
+        with TRACER.span("slam.map.stage"):
+            act_main = active_trees(stage, event_update=False)
+            lrs_main = lr_trees(stage, event_update=False)
+            if use_events:
+                act_ev = active_trees(stage, event_update=True)
+                lrs_ev = lr_trees(stage, event_update=True)
         draws = pixel_draws[stage]
         draws_c = pixel_draws_c[stage] if fuse_coarse else None
         reg = reg_draws[stage] if reg_draws is not None else None
@@ -522,27 +528,29 @@ def map_frame(
                                             False, True, dp=dp)
                 return loss
 
-            if not nice:
-                lrs_main = lr_trees(stage, event_update=False, it=start + i)
-            last_loss, grads = _value_and_grad(loss_fn, params, act_main)
-            with torch.no_grad():
-                if use_frustum:
-                    grads = (_mask_grid_grads(grads[0], grid_masks, coarse_mapper,
-                                              fused=fuse_coarse), grads[1], grads[2])
-                params, adam = adam_update(grads, adam, params, lrs_main, active=act_main)
-            if use_events:
-                def ev_fn(p):
-                    return _mapper_event_loss(p, fixed_c2w, bound, prev_color_lo, gt_event_lo,
-                                              gt_depth_lo_flat, eventnet, cfg, cam, settings,
-                                              ba, event_balancer, dp=dp)
+            def ev_fn(p):
+                return _mapper_event_loss(p, fixed_c2w, bound, prev_color_lo, gt_event_lo,
+                                          gt_depth_lo_flat, eventnet, cfg, cam, settings,
+                                          ba, event_balancer, dp=dp)
 
-                last_ev, ev_grads = _value_and_grad(ev_fn, params, act_ev)
-                with torch.no_grad():
+            with TRACER.span("slam.map.iter"):
+                if not nice:
+                    lrs_main = lr_trees(stage, event_update=False, it=start + i)
+                last_loss, grads = _value_and_grad(loss_fn, params, act_main)
+                with TRACER.span("slam.map.iter.step"), torch.no_grad():
                     if use_frustum:
-                        ev_grads = (_mask_grid_grads(ev_grads[0], grid_masks, coarse_mapper),
-                                    ev_grads[1], ev_grads[2])
-                    params, adam_ev = adam_update(ev_grads, adam_ev, params, lrs_ev,
-                                                  active=act_ev)
+                        grads = (_mask_grid_grads(grads[0], grid_masks, coarse_mapper,
+                                                  fused=fuse_coarse), grads[1], grads[2])
+                    params, adam = adam_update(grads, adam, params, lrs_main, active=act_main)
+                if use_events:
+                    last_ev, ev_grads = _value_and_grad(ev_fn, params, act_ev)
+                    with TRACER.span("slam.map.iter.step"), torch.no_grad():
+                        if use_frustum:
+                            ev_grads = (_mask_grid_grads(ev_grads[0], grid_masks,
+                                                         coarse_mapper),
+                                        ev_grads[1], ev_grads[2])
+                        params, adam_ev = adam_update(ev_grads, adam_ev, params, lrs_ev,
+                                                      active=act_ev)
     return params[0], params[1], params[2], adam, adam_ev, last_loss, last_ev
 
 
@@ -673,7 +681,8 @@ class Mapper:
             else:
                 kf.sync_host_poses()  # device BA may have updated poses
                 frames = keyframe_selection_overlap(
-                    host_array(gt_color), host_array(gt_depth), host_array(cur_c2w),
+                    host_array(gt_color, MAP_HOST), host_array(gt_depth, MAP_HOST),
+                    host_array(cur_c2w, MAP_HOST),
                     kf.frames[:-1], num, self.cam, rng=rng,
                 )
         if len(kf) > 0:
@@ -708,7 +717,8 @@ class Mapper:
             self.keyframes.sync_host_poses()
             kf_rows = np.stack([
                 np.eye(4, dtype=np.float32) if (f == -1 and cur_is_dev)
-                else (host_array(cur_c2w) if f == -1 else self.keyframes.frames[f]["est_c2w"])
+                else (host_array(cur_c2w, MAP_HOST) if f == -1
+                      else self.keyframes.frames[f]["est_c2w"])
                 for f in frames
             ]).astype(np.float32)
             fixed = to_device(kf_rows, self.device)
@@ -764,130 +774,142 @@ class Mapper:
         ``vis_inside_freq`` > 0 splits the call into chunks of that many
         iterations and fires before each; the chunked call is bitwise equal
         to the unchunked one."""
-        cfg = self.cfg
-        dev = self.device
-        pose_is_dev = isinstance(cur_c2w, torch.Tensor)
-        if cur_images_dev is not None:
-            cur_color_dev, cur_depth_dev = cur_images_dev
-        else:
-            cur_color_dev = to_device(host_array(cur_gt_color), dev)
-            cur_depth_dev = to_device(host_array(cur_gt_depth), dev)
+        with TRACER.span("slam.map"):
+            return self._optimize_map(
+                num_joint_iters, lr_factor, idx, cur_gt_color, cur_gt_depth, cur_gt_event,
+                cur_c2w, pre_gt_color, color_refine, seed, grids, decoders, cur_images_dev,
+                vis_callback, vis_inside_freq)
 
-        dev_select = (
-            pose_is_dev
-            and self.selection == "overlap"
-            and len(self.keyframes) > 1
-            and not cfg.save_selected_keyframes_info
-        )
-        ba = self.BA_active and not self.coarse_mapper
-        window = window_idx_dev = None
-        if dev_select:
-            K = min(cfg.window_size, len(self.keyframes) + 1)
-            kf_cols, kf_deps, kf_poses = self.keyframes.device_stack()
-            sel_idx, sel_pri = self._selection_draws(seed, len(self.keyframes))
-            (colors, depths, fixed_c2w, cam_tensors, window_idx_dev,
-             opt_mask) = select_assemble_window(
-                kf_cols, kf_deps, kf_poses, cur_color_dev, cur_depth_dev,
-                cur_c2w.to(dev, torch.float32), K - 2, self.cam,
-                pixel_idx=sel_idx, priorities=sel_pri,
+    def _optimize_map(self, num_joint_iters, lr_factor, idx, cur_gt_color, cur_gt_depth,
+                      cur_gt_event, cur_c2w, pre_gt_color, color_refine, seed, grids, decoders,
+                      cur_images_dev, vis_callback, vis_inside_freq):
+        with TRACER.span("slam.map.window"):
+            cfg = self.cfg
+            dev = self.device
+            pose_is_dev = isinstance(cur_c2w, torch.Tensor)
+            if cur_images_dev is not None:
+                cur_color_dev, cur_depth_dev = cur_images_dev
+            else:
+                cur_color_dev = to_device(host_array(cur_gt_color, MAP_HOST), dev)
+                cur_depth_dev = to_device(host_array(cur_gt_depth, MAP_HOST), dev)
+
+            dev_select = (
+                pose_is_dev
+                and self.selection == "overlap"
+                and len(self.keyframes) > 1
+                and not cfg.save_selected_keyframes_info
             )
-        else:
-            window = self.select_window(cur_gt_color, cur_gt_depth, cur_c2w)
-            K = len(window)
-            # cam tensors are only read under BA
-            colors, depths, fixed_c2w, cam_tensors = self._assemble_window(
-                window, cur_color_dev, cur_depth_dev, cur_c2w, need_cams=ba)
-        pix_per_img = cfg.pixels // K
-        self.last_window_size = K
+            ba = self.BA_active and not self.coarse_mapper
+            window = window_idx_dev = None
+            if dev_select:
+                K = min(cfg.window_size, len(self.keyframes) + 1)
+                kf_cols, kf_deps, kf_poses = self.keyframes.device_stack()
+                sel_idx, sel_pri = self._selection_draws(seed, len(self.keyframes))
+                (colors, depths, fixed_c2w, cam_tensors, window_idx_dev,
+                 opt_mask) = select_assemble_window(
+                    kf_cols, kf_deps, kf_poses, cur_color_dev, cur_depth_dev,
+                    cur_c2w.to(dev, torch.float32), K - 2, self.cam,
+                    pixel_idx=sel_idx, priorities=sel_pri,
+                )
+            else:
+                window = self.select_window(cur_gt_color, cur_gt_depth, cur_c2w)
+                K = len(window)
+                # cam tensors are only read under BA
+                colors, depths, fixed_c2w, cam_tensors = self._assemble_window(
+                    window, cur_color_dev, cur_depth_dev, cur_c2w, need_cams=ba)
+            pix_per_img = cfg.pixels // K
+            self.last_window_size = K
 
-        if cfg.save_selected_keyframes_info:
-            info = []
-            for f in window:
-                if f == -1:
-                    info.append({"idx": idx, "est_c2w": host_array(cur_c2w).copy()})
+            if cfg.save_selected_keyframes_info:
+                info = []
+                for f in window:
+                    if f == -1:
+                        info.append({"idx": idx, "est_c2w": host_array(cur_c2w, MAP_HOST).copy()})
+                    else:
+                        kf = self.keyframes.frames[f]
+                        info.append({"idx": kf["idx"], "est_c2w": kf["est_c2w"].copy(),
+                                     "gt_c2w": kf["gt_c2w"].copy()})
+                self.selected_keyframes[idx] = info
+
+            # the fused coarse term: its own globally random window
+            nice = self.settings.nice
+            fuse_coarse = bool(self.fuse_coarse and nice and not self.coarse_mapper
+                               and not color_refine)
+            colors_c = depths_c = fixed_c2w_c = None
+            pix_per_img_c = 0
+            if fuse_coarse:
+                c_frames = self.select_window(None, None, None, selection="global",
+                                              rng=self.rng_coarse)
+                pix_per_img_c = cfg.pixels // len(c_frames)
+                if c_frames == window:
+                    colors_c, depths_c, fixed_c2w_c = colors, depths, fixed_c2w
                 else:
-                    kf = self.keyframes.frames[f]
-                    info.append({"idx": kf["idx"], "est_c2w": kf["est_c2w"].copy(),
-                                 "gt_c2w": kf["gt_c2w"].copy()})
-            self.selected_keyframes[idx] = info
+                    colors_c, depths_c, fixed_c2w_c, _ = self._assemble_window(
+                        c_frames, cur_color_dev, cur_depth_dev, cur_c2w, need_cams=False)
 
-        # the fused coarse term: its own globally random window
-        nice = self.settings.nice
-        fuse_coarse = bool(self.fuse_coarse and nice and not self.coarse_mapper
-                           and not color_refine)
-        colors_c = depths_c = fixed_c2w_c = None
-        pix_per_img_c = 0
-        if fuse_coarse:
-            c_frames = self.select_window(None, None, None, selection="global",
-                                          rng=self.rng_coarse)
-            pix_per_img_c = cfg.pixels // len(c_frames)
-            if c_frames == window:
-                colors_c, depths_c, fixed_c2w_c = colors, depths, fixed_c2w
+            assert not (ba and pose_is_dev and not dev_select), (
+                "BA with a device pose needs the device selection / write-back path "
+                "(overlap selection); host-path BA must receive a numpy pose"
+            )
+            # the oldest KEYFRAME anchors the gauge; the current frame's pose is
+            # optimised (dev_select computed opt_mask on the device)
+            if not dev_select:
+                kf_only = [f for f in window if f != -1]
+                oldest = min(kf_only) if kf_only else -1
+                opt_mask = to_device(
+                    np.array([0.0 if f == oldest else 1.0 for f in window], np.float32), dev)
+
+            stages, seg = stage_schedule(num_joint_iters, cfg, self.coarse_mapper, color_refine,
+                                         nice)
+            spans = {}
+            acc = 0
+            for s in stages:
+                spans[s] = (acc, acc + seg[s])
+                acc += seg[s]
+            total_iters = acc
+
+            # frustum masks
+            use_frustum = cfg.frustum_feature_selection and nice and not color_refine
+            grid_masks: Dict[str, torch.Tensor] = {}
+            if grids is not None:
+                masked = [lvl for lvl in grids if use_frustum and lvl != "coarse"]
+                if masked and pose_is_dev:
+                    ms = frustum_feature_masks(
+                        cur_c2w, [tuple(grids[lvl].shape[:3]) for lvl in masked],
+                        cur_depth_dev, self.bound, self.cam)
+                    grid_masks.update(zip(masked, ms))
+                else:
+                    for lvl in masked:
+                        m = frustum_feature_mask(host_array(cur_c2w, MAP_HOST),
+                                                 tuple(grids[lvl].shape[:3]),
+                                                 host_array(cur_gt_depth, MAP_HOST),
+                                                 self.bound_np, self.cam)
+                        grid_masks[lvl] = to_device(m[..., None].astype(np.float32), dev)
+                for lvl, g in grids.items():
+                    if lvl not in grid_masks:
+                        grid_masks[lvl] = self._ones_mask(g.shape[:3])
+
+            # event inputs
+            use_events = cfg.use_events and not self.coarse_mapper and idx != 0
+            lo_h, lo_w = self.lo_hw
+            if use_events and pre_gt_color is not None:
+                prev_fn = resize_nearest if cfg.prev_resize == "nearest" else resize_bilinear
+                prev_color_lo = prev_fn(_as_tensor(pre_gt_color, dev), self.lo_hw)
+                gt_event_lo = resize_nearest(_as_tensor(cur_gt_event, dev), self.lo_hw)
+                gt_depth_lo_flat = resize_bilinear(cur_depth_dev, self.lo_hw).reshape(-1)
+                balancer = float(np.float32((pix_per_img * K) / (lo_w * lo_h) / 100.0))
             else:
-                colors_c, depths_c, fixed_c2w_c, _ = self._assemble_window(
-                    c_frames, cur_color_dev, cur_depth_dev, cur_c2w, need_cams=False)
+                use_events = False
+                prev_color_lo = gt_event_lo = gt_depth_lo_flat = None
+                balancer = 0.0
 
-        assert not (ba and pose_is_dev and not dev_select), (
-            "BA with a device pose needs the device selection / write-back path "
-            "(overlap selection); host-path BA must receive a numpy pose"
-        )
-        # the oldest KEYFRAME anchors the gauge; the current frame's pose is
-        # optimised (dev_select computed opt_mask on the device)
-        if not dev_select:
-            kf_only = [f for f in window if f != -1]
-            oldest = min(kf_only) if kf_only else -1
-            opt_mask = to_device(
-                np.array([0.0 if f == oldest else 1.0 for f in window], np.float32), dev)
-
-        stages, seg = stage_schedule(num_joint_iters, cfg, self.coarse_mapper, color_refine,
-                                     nice)
-        spans = {}
-        acc = 0
-        for s in stages:
-            spans[s] = (acc, acc + seg[s])
-            acc += seg[s]
-        total_iters = acc
-
-        # frustum masks
-        use_frustum = cfg.frustum_feature_selection and nice and not color_refine
-        grid_masks: Dict[str, torch.Tensor] = {}
-        if grids is not None:
-            masked = [lvl for lvl in grids if use_frustum and lvl != "coarse"]
-            if masked and pose_is_dev:
-                ms = frustum_feature_masks(
-                    cur_c2w, [tuple(grids[lvl].shape[:3]) for lvl in masked],
-                    cur_depth_dev, self.bound, self.cam)
-                grid_masks.update(zip(masked, ms))
-            else:
-                for lvl in masked:
-                    m = frustum_feature_mask(host_array(cur_c2w), tuple(grids[lvl].shape[:3]),
-                                             host_array(cur_gt_depth), self.bound_np, self.cam)
-                    grid_masks[lvl] = to_device(m[..., None].astype(np.float32), dev)
-            for lvl, g in grids.items():
-                if lvl not in grid_masks:
-                    grid_masks[lvl] = self._ones_mask(g.shape[:3])
-
-        # event inputs
-        use_events = cfg.use_events and not self.coarse_mapper and idx != 0
-        lo_h, lo_w = self.lo_hw
-        if use_events and pre_gt_color is not None:
-            prev_fn = resize_nearest if cfg.prev_resize == "nearest" else resize_bilinear
-            prev_color_lo = prev_fn(_as_tensor(pre_gt_color, dev), self.lo_hw)
-            gt_event_lo = resize_nearest(_as_tensor(cur_gt_event, dev), self.lo_hw)
-            gt_depth_lo_flat = resize_bilinear(cur_depth_dev, self.lo_hw).reshape(-1)
-            balancer = float(np.float32((pix_per_img * K) / (lo_w * lo_h) / 100.0))
-        else:
-            use_events = False
-            prev_color_lo = gt_event_lo = gt_depth_lo_flat = None
-            balancer = 0.0
-
-        # the pixel draws of the whole call, one randint per stage and term
-        draws = {s: self._draw_pixels(seed, s, 0, seg[s], K, pix_per_img) for s in stages}
-        draws_c = ({s: self._draw_pixels(seed, s, 1, seg[s], len(c_frames), pix_per_img_c)
-                    for s in stages} if fuse_coarse else None)
-        reg = None
-        if not self.settings.occupancy:
-            reg = {s: self._draw_regulation(seed, s, seg[s], K * pix_per_img) for s in stages}
+            # the pixel draws of the whole call, one randint per stage and term
+            draws = {s: self._draw_pixels(seed, s, 0, seg[s], K, pix_per_img) for s in stages}
+            draws_c = ({s: self._draw_pixels(seed, s, 1, seg[s], len(c_frames), pix_per_img_c)
+                        for s in stages} if fuse_coarse else None)
+            reg = None
+            if not self.settings.occupancy:
+                reg = {s: self._draw_regulation(seed, s, seg[s], K * pix_per_img) for s in stages}
 
         new_grids, new_decoders, new_cams = grids, decoders, cam_tensors
         adam = adam_ev = None
@@ -921,12 +943,14 @@ class Mapper:
 
         new_cur_c2w = None
         if ba and dev_select:
-            _, _, kf_poses = self.keyframes.device_stack()
-            new_poses, new_cur_c2w = scatter_window_poses(
-                kf_poses, window_idx_dev, new_cams, fixed_c2w, opt_mask)
-            self.keyframes.set_poses_device(new_poses)
+            with TRACER.span("slam.map.writeback"):
+                _, _, kf_poses = self.keyframes.device_stack()
+                new_poses, new_cur_c2w = scatter_window_poses(
+                    kf_poses, window_idx_dev, new_cams, fixed_c2w, opt_mask)
+                self.keyframes.set_poses_device(new_poses)
         elif ba:
-            cams_np = new_cams.cpu().numpy()
+            with TRACER.span("slam.sync.ba_writeback"):
+                cams_np = new_cams.cpu().numpy()
             for slot, f in enumerate(window):
                 if f == oldest:
                     continue

@@ -86,7 +86,7 @@ from evennicer_slam_tpu_torch.slam.mapper import Mapper, MapperConfig
 from evennicer_slam_tpu_torch.slam.tracker import Tracker, TrackerConfig, esim_predict
 from evennicer_slam_tpu_torch.utils.logger import CheckpointLogger
 from evennicer_slam_tpu_torch.utils.runtime import resolve_device
-from evennicer_slam_tpu_torch.utils.telemetry import MetricsLogger, PhaseTimers
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER, MetricsLogger
 from evennicer_slam_tpu_torch.utils.visualizer import Visualizer
 
 # steady mapping calls the host may run ahead of the device
@@ -111,7 +111,13 @@ class EvenNICERSLAM:
     """Allocates the scene state, builds the dataset reader, tracker and
     mapper, and runs the interleaved schedule. ``device=None`` means the
     CUDA device; ``devices`` lists the device slots (default: every CUDA
-    device when ``device`` is CUDA, else ``device`` alone)."""
+    device when ``device`` is CUDA, else ``device`` alone).
+
+    ``tracer`` is the process's span tracer (``utils/telemetry.py``): off
+    unless ``verbose`` turns it on, ``tracer.enable()`` is called, or a
+    ``torch.profiler`` session records."""
+
+    tracer = TRACER
 
     def __init__(self, cfg: Dict[str, Any], args=None, nice: bool = True, device=None,
                  devices=None):
@@ -138,6 +144,8 @@ class EvenNICERSLAM:
         self.nice = nice
         self.coarse = cfg["coarse"] and nice
         self.verbose = cfg.get("verbose", False)
+        if self.verbose:
+            self.tracer.enable()
 
         out = getattr(args, "output", None) if args else None
         self.output = out or cfg["data"]["output"]
@@ -235,7 +243,6 @@ class EvenNICERSLAM:
         # tracked frame would wait for the whole mapping call (the
         # reference's mapper writes its poses back behind the tracker too)
         self._track_pose_cache: Dict[int, torch.Tensor] = {}
-        self.timers = PhaseTimers()
         self._mesher = None
         self._renderer = None
         self._vis: Dict[str, Visualizer] = {}
@@ -319,7 +326,8 @@ class EvenNICERSLAM:
                 pred, _ = esim_predict(prev_lo, cur_lo, self.t_cfg.esim_gain)
             else:
                 pred, _ = inference_event(self.eventnet, prev_lo, cur_lo)
-        return gt_ev_lo.cpu().numpy(), pred.cpu().numpy()
+        with TRACER.span("slam.sync.vis"):
+            return gt_ev_lo.cpu().numpy(), pred.cpu().numpy()
 
     # ------------------------------------------------------------------
     # poses: device-backed, read back in one copy on access
@@ -331,7 +339,9 @@ class EvenNICERSLAM:
         if self._est_dev:
             idxs = list(self._est_dev)
             # tracked poses on the track group, BA write-backs on the map group
-            mats = torch.stack([self._est_dev[i].to(self.device) for i in idxs]).cpu().numpy()
+            with TRACER.span("slam.sync.pose"):
+                mats = torch.stack([self._est_dev[i].to(self.device)
+                                    for i in idxs]).cpu().numpy()
             self._est_np[idxs] = mats
             self._est_dev.clear()
             self._host_copies.clear()
@@ -360,11 +370,12 @@ class EvenNICERSLAM:
         p = self._est_dev.pop(idx, None)
         if p is not None:
             staged = self._host_copies.pop(idx, None)
-            if staged is not None:
-                staged[1].synchronize()
-                self._est_np[idx] = staged[0].numpy()
-            else:
-                self._est_np[idx] = p.cpu().numpy()
+            with TRACER.span("slam.sync.pose"):
+                if staged is not None:
+                    staged[1].synchronize()
+                    self._est_np[idx] = staged[0].numpy()
+                else:
+                    self._est_np[idx] = p.cpu().numpy()
         return self._est_np[idx]
 
     def _stage_host_copy(self, idx: int, c2w: torch.Tensor):
@@ -393,7 +404,8 @@ class EvenNICERSLAM:
         pending, self._metric_queue = self._metric_queue, []
         dev_vals = [v.detach().reshape(-1).double().to(self.device) for _, d in pending
                     for v in d.values() if isinstance(v, torch.Tensor)]
-        flat = torch.cat(dev_vals).cpu().numpy() if dev_vals else np.zeros(0)
+        with TRACER.span("slam.sync.metrics"):
+            flat = torch.cat(dev_vals).cpu().numpy() if dev_vals else np.zeros(0)
         pos = 0
         for rec, dev in pending:
             for k, v in dev.items():
@@ -518,7 +530,8 @@ class EvenNICERSLAM:
         probe = p["probe"]
         if probe is not None:
             if block:
-                probe.synchronize()
+                with TRACER.span("slam.sync.loose_wait"):
+                    probe.synchronize()
             elif not probe.query():
                 return False
         self._adopt_map_snapshot()
@@ -579,6 +592,12 @@ class EvenNICERSLAM:
 
     def _map_frame(self, idx: int, frame, init: bool, color_refine: bool = False,
                    images_dev=None):
+        """The mapping of frame ``idx``: its inputs, the mapping call(s), the
+        keyframe registry and the back-pressure; the span ``slam.step.map``."""
+        with TRACER.span("slam.step.map"):
+            self._map_phase(idx, frame, init, color_refine, images_dev)
+
+    def _map_phase(self, idx, frame, init, color_refine, images_dev):
         m = self.m_cfg
         gt_event_int = self._integrated_event(idx) if self.use_events else frame.event
         if self.concurrent:
@@ -663,12 +682,17 @@ class EvenNICERSLAM:
             done.record(torch.cuda.current_stream(self.mapper.device))
             self._inflight_maps.append(done)
             while len(self._inflight_maps) > MAX_INFLIGHT_MAPS:
-                self._inflight_maps.popleft().synchronize()
+                with TRACER.span("slam.sync.inflight_map"):
+                    self._inflight_maps.popleft().synchronize()
 
     def step(self, idx: int) -> bool:
         """Process frame ``idx`` through the schedule; returns whether it was
         mapped. In steady state this only enqueues device work: the frame was
         uploaded ahead of time by the reader's worker thread."""
+        with self.tracer.step(idx):
+            return self._step(idx)
+
+    def _step(self, idx: int) -> bool:
         frame, dev = self.frame_reader.get_with_device(idx)
         self.gt_c2w_list[idx] = frame.c2w
         gt_color, gt_depth, gt_event = dev
@@ -678,38 +702,35 @@ class EvenNICERSLAM:
             if idx == 0:
                 if self.use_events:
                     self.tracker.reset_event_integration(frame.event.shape)
-                with self.timers.phase("map"):
-                    self._map_frame(idx, frame, init=True, images_dev=(gt_color, gt_depth))
-                    if self.concurrent:
-                        # the reference tracks only after the first mapping
-                        # call: adopt it before frame 1
-                        self._pending_map = {"idx": 0, "probe": self._map_probe()}
-                        self._last_map_dispatch_idx = 0
-                        self.n_concurrent_maps += 1
-                        self._adopt_pending_map(block=True)
+                self._map_frame(idx, frame, init=True, images_dev=(gt_color, gt_depth))
+                if self.concurrent:
+                    # the reference tracks only after the first mapping
+                    # call: adopt it before frame 1
+                    self._pending_map = {"idx": 0, "probe": self._map_probe()}
+                    self._last_map_dispatch_idx = 0
+                    self.n_concurrent_maps += 1
+                    self._adopt_pending_map(block=True)
                 self.tracker.pre_gt_color = gt_color
         else:
-            with self.timers.phase("track"):
-                if self.concurrent:
-                    self._adopt_pending_map(block=False)
-                    if self.sync_method == "loose":
-                        with self.timers.phase("loose_wait"):
-                            self._loose_wait(idx)
-                    self.lag_trace.append((idx, self.adopted_map_idx))
-                track_grids, track_decoders = self._track_state()
-                c2w = self.tracker.track(
-                    idx, gt_color, gt_depth, gt_event, self._init_pose(idx - 1),
-                    self._init_pose(idx - 2) if idx >= 2 else None,
-                    track_decoders, track_grids, seed=idx)
-                self._set_pose(idx, c2w)
-                if self.concurrent:
-                    self._track_pose_cache[idx] = c2w
-                    self._track_pose_cache.pop(idx - 3, None)
-                boundary = idx % self.m_cfg.every_frame == 0 or idx == self.n_img - 1
-                if boundary and (idx == self.n_img - 1 or not self._async_map_ok()):
-                    # a synced mapping call (or the final colour refinement)
-                    # will read this pose
-                    self._stage_host_copy(idx, c2w)
+            if self.concurrent:
+                self._adopt_pending_map(block=False)
+                if self.sync_method == "loose":
+                    self._loose_wait(idx)
+                self.lag_trace.append((idx, self.adopted_map_idx))
+            track_grids, track_decoders = self._track_state()
+            c2w = self.tracker.track(
+                idx, gt_color, gt_depth, gt_event, self._init_pose(idx - 1),
+                self._init_pose(idx - 2) if idx >= 2 else None,
+                track_decoders, track_grids, seed=idx)
+            self._set_pose(idx, c2w)
+            if self.concurrent:
+                self._track_pose_cache[idx] = c2w
+                self._track_pose_cache.pop(idx - 3, None)
+            boundary = idx % self.m_cfg.every_frame == 0 or idx == self.n_img - 1
+            if boundary and (idx == self.n_img - 1 or not self._async_map_ok()):
+                # a synced mapping call (or the final colour refinement)
+                # will read this pose
+                self._stage_host_copy(idx, c2w)
 
         self.tracker.end_of_window(idx, gt_color, self.m_cfg.every_frame)
 
@@ -721,39 +742,37 @@ class EvenNICERSLAM:
         if idx > 0 and self.cfg.get("enable_vis", True):
             vis = self._get_vis("tracking")
             if vis.should_vis(idx, 0):
-                gt_ev_lo = pred_ev = None
-                if self.use_events and self.tracker.pre_gt_color is not None:
-                    gt_ev_lo, pred_ev = self._predict_event_for_vis(idx, gt_depth)
-                g, d = self._track_state()
-                vis.vis(idx, 0, gt_depth, gt_color, self._pose_np(idx), g, d,
-                        gt_event=gt_ev_lo, pred_event=pred_ev)
+                with TRACER.span("slam.vis"):
+                    gt_ev_lo = pred_ev = None
+                    if self.use_events and self.tracker.pre_gt_color is not None:
+                        gt_ev_lo, pred_ev = self._predict_event_for_vis(idx, gt_depth)
+                    g, d = self._track_state()
+                    vis.vis(idx, 0, gt_depth, gt_color, self._pose_np(idx), g, d,
+                            gt_event=gt_ev_lo, pred_event=pred_ev)
 
         mapped = False
         if self.concurrent and idx != 0:
-            with self.timers.phase("map"):
-                if idx == self.n_img - 1:
-                    # the last frame is always mapped: wait for the call in
-                    # flight, then map it
-                    self._adopt_pending_map(block=True)
-                    if self._last_map_dispatch_idx != idx:
-                        self._map_frame(idx, frame, init=False,
-                                        images_dev=(gt_color, gt_depth))
-                        self._last_map_dispatch_idx = idx
-                        self.n_concurrent_maps += 1
-                        self.adopted_map_idx = idx
-                        self._adopt_map_snapshot()
-                    mapped = True
-                else:
-                    mapped = self._maybe_dispatch_map(idx, frame, (gt_color, gt_depth))
+            if idx == self.n_img - 1:
+                # the last frame is always mapped: wait for the call in
+                # flight, then map it
+                self._adopt_pending_map(block=True)
+                if self._last_map_dispatch_idx != idx:
+                    self._map_frame(idx, frame, init=False,
+                                    images_dev=(gt_color, gt_depth))
+                    self._last_map_dispatch_idx = idx
+                    self.n_concurrent_maps += 1
+                    self.adopted_map_idx = idx
+                    self._adopt_map_snapshot()
+                mapped = True
+            else:
+                mapped = self._maybe_dispatch_map(idx, frame, (gt_color, gt_depth))
         elif idx != 0 and idx % self.m_cfg.every_frame == 0:
-            with self.timers.phase("map"):
-                self._map_frame(idx, frame, init=False, images_dev=(gt_color, gt_depth))
+            self._map_frame(idx, frame, init=False, images_dev=(gt_color, gt_depth))
             mapped = True
         if idx == self.n_img - 1:
             if self.m_cfg.color_refine and self.nice:
-                with self.timers.phase("map"):
-                    self._map_frame(idx, frame, init=False, color_refine=True,
-                                    images_dev=(gt_color, gt_depth))
+                self._map_frame(idx, frame, init=False, color_refine=True,
+                                images_dev=(gt_color, gt_depth))
             mapped = True
         self.idx = idx
         return mapped
@@ -776,9 +795,9 @@ class EvenNICERSLAM:
             mapped = self.step(idx)
             if self.verbose:
                 # host time spent enqueueing each phase: the device runs behind
-                t = self.timers.total
-                print(f"[enslam] frame {idx}/{n} track_dispatch={t['track']:.1f}s "
-                      f"map_dispatch={t['map']:.1f}s")
+                t = self.tracer.total
+                print(f"[enslam] frame {idx}/{n} track_dispatch={t['slam.track']:.1f}s "
+                      f"map_dispatch={t['slam.map']:.1f}s")
             if mapped and checkpoint and idx > 0 and idx % ckpt_freq == 0:
                 self.mapper.keyframes.sync_host_poses()
                 self.logger.log(self, idx)

@@ -57,6 +57,7 @@ from evennicer_slam_tpu_torch.render.renderer import RenderSettings, render_rays
 from evennicer_slam_tpu_torch.slam.camera import Camera
 from evennicer_slam_tpu_torch.utils.optim import adam_init, adam_update
 from evennicer_slam_tpu_torch.utils.runtime import require_on, resolve_device
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 
 def _check_activate_events(value):
@@ -244,86 +245,89 @@ def tracking_loss(
     total = cam_tensor.new_zeros(())
 
     if rgbd:
-        He, We = cfg.ignore_edge_h, cfg.ignore_edge_w
-        rays_o, rays_d, b_depth, b_color = get_samples(
-            generator, He, cam.H - He, We, cam.W - We, cfg.pixels,
-            cam.fx, cam.fy, cam.cx, cam.cy, c2w, gt_depth, gt_color,
-            pixel_ij=pixel_ij,
-        )
-        if settings.nice:
-            inside = inside_bound_mask(
-                rays_o.detach(), rays_d.detach(), b_depth, bound)
-        else:
-            inside = torch.ones_like(b_depth, dtype=torch.bool)
-
-        depth, var, color = render_rays_dp(
-            decoders, grids, rays_o, rays_d, bound, "color", settings,
-            gt_depth=b_depth, dp=dp, replicas=replicas,
-        )
-        var = var.detach()
-        tmp = torch.abs(b_depth - depth) / torch.sqrt(var + 1e-10)
-        if cfg.handle_dynamic:
-            med = masked_median(tmp.detach(), inside)
-            mask = (tmp.detach() < 10 * med) & (b_depth > 0) & inside
-        else:
-            mask = (b_depth > 0) & inside
-
-        loss_rgbd = torch.sum(tmp * mask)
-        if cfg.use_color:
-            loss_rgbd = loss_rgbd + cfg.w_color_loss * torch.sum(
-                torch.abs(b_color - color) * mask[:, None]
+        with TRACER.span("slam.track.rgbd"):
+            He, We = cfg.ignore_edge_h, cfg.ignore_edge_w
+            rays_o, rays_d, b_depth, b_color = get_samples(
+                generator, He, cam.H - He, We, cam.W - We, cfg.pixels,
+                cam.fx, cam.fy, cam.cx, cam.cy, c2w, gt_depth, gt_color,
+                pixel_ij=pixel_ij,
             )
-        aux["rgbd"] = loss_rgbd
-        total = total + loss_rgbd
+            if settings.nice:
+                inside = inside_bound_mask(
+                    rays_o.detach(), rays_d.detach(), b_depth, bound)
+            else:
+                inside = torch.ones_like(b_depth, dtype=torch.bool)
+
+            depth, var, color = render_rays_dp(
+                decoders, grids, rays_o, rays_d, bound, "color", settings,
+                gt_depth=b_depth, dp=dp, replicas=replicas,
+            )
+            var = var.detach()
+            tmp = torch.abs(b_depth - depth) / torch.sqrt(var + 1e-10)
+            if cfg.handle_dynamic:
+                med = masked_median(tmp.detach(), inside)
+                mask = (tmp.detach() < 10 * med) & (b_depth > 0) & inside
+            else:
+                mask = (b_depth > 0) & inside
+
+            loss_rgbd = torch.sum(tmp * mask)
+            if cfg.use_color:
+                loss_rgbd = loss_rgbd + cfg.w_color_loss * torch.sum(
+                    torch.abs(b_color - color) * mask[:, None]
+                )
+            aux["rgbd"] = loss_rgbd
+            total = total + loss_rgbd
 
     if event:
-        lo_h, lo_w = prev_color_lo.shape[:2]
-        rays_o, rays_d = get_rays_rescale(
-            cam.H, cam.W, lo_h, lo_w, cam.fx, cam.fy, cam.cx, cam.cy, c2w
-        )
-        _, _, cur_color_lo = render_rays_dp(
-            decoders, grids, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
-            bound, "color", settings, gt_depth=gt_depth_lo_flat, dp=dp, replicas=replicas,
-        )
-        cur_color_lo = cur_color_lo.reshape(lo_h, lo_w, 3)
-        if cfg.predictor == "esim":
-            ev, mp = esim_predict(prev_color_lo, cur_color_lo, cfg.esim_gain)
-            pred_event, mask_pred = ev, mp[None]
-        else:
-            pred_event, mask_pred = inference_event(
-                eventnet, prev_color_lo, cur_color_lo
+        with TRACER.span("slam.track.event"):
+            lo_h, lo_w = prev_color_lo.shape[:2]
+            rays_o, rays_d = get_rays_rescale(
+                cam.H, cam.W, lo_h, lo_w, cam.fx, cam.fy, cam.cx, cam.cy, c2w
             )
-        # prediction-quality telemetry: Pearson correlation of the detached
-        # prediction against the GT events, plus the GT event energy (the
-        # correlation is undefined on event-free frames)
-        p = pred_event.detach().reshape(-1)
-        g = gt_event_lo.reshape(-1)
-        pc = p - p.mean()
-        gc = g - g.mean()
-        aux["event_corr"] = torch.sum(pc * gc) / torch.sqrt(
-            torch.sum(pc * pc) * torch.sum(gc * gc) + 1e-12
-        )
-        aux["event_gt_energy"] = torch.sum(g * g)
-        # event-existence mask cross-entropy — computed and LOGGED but never
-        # backpropagated (the CE runs on the already-sigmoided mask head, as
-        # the original did)
-        logsm = torch.log_softmax(mask_pred[0].detach(), dim=-1)
-        aux["mask"] = -torch.mean(
-            gt_mask_lo * logsm[..., 1] + (1.0 - gt_mask_lo) * logsm[..., 0]
-        )
-        if cfg.blur:
-            loss_event = event_pyramid_loss(
-                gt_event_lo, pred_event, cfg.kernel_sizes, cfg.kernel_weights
+            _, _, cur_color_lo = render_rays_dp(
+                decoders, grids, rays_o.reshape(-1, 3), rays_d.reshape(-1, 3),
+                bound, "color", settings, gt_depth=gt_depth_lo_flat, dp=dp, replicas=replicas,
             )
-        else:
-            loss_event = torch.sum((gt_event_lo - pred_event) ** 2)
-        loss_event = loss_event * cfg.balancer
-        aux["event"] = loss_event
-        if cfg.activate_events == "non_rgbd":
-            if not rgbd:
-                total = total + loss_event
-        elif cfg.activate_events:
-            total = total + loss_event
+            cur_color_lo = cur_color_lo.reshape(lo_h, lo_w, 3)
+            if cfg.predictor == "esim":
+                ev, mp = esim_predict(prev_color_lo, cur_color_lo, cfg.esim_gain)
+                pred_event, mask_pred = ev, mp[None]
+            else:
+                pred_event, mask_pred = inference_event(
+                    eventnet, prev_color_lo, cur_color_lo
+                )
+            with TRACER.span("slam.track.event.loss"):
+                # prediction-quality telemetry: Pearson correlation of the detached
+                # prediction against the GT events, plus the GT event energy (the
+                # correlation is undefined on event-free frames)
+                p = pred_event.detach().reshape(-1)
+                g = gt_event_lo.reshape(-1)
+                pc = p - p.mean()
+                gc = g - g.mean()
+                aux["event_corr"] = torch.sum(pc * gc) / torch.sqrt(
+                    torch.sum(pc * pc) * torch.sum(gc * gc) + 1e-12
+                )
+                aux["event_gt_energy"] = torch.sum(g * g)
+                # event-existence mask cross-entropy — computed and LOGGED but never
+                # backpropagated (the CE runs on the already-sigmoided mask head, as
+                # the original did)
+                logsm = torch.log_softmax(mask_pred[0].detach(), dim=-1)
+                aux["mask"] = -torch.mean(
+                    gt_mask_lo * logsm[..., 1] + (1.0 - gt_mask_lo) * logsm[..., 0]
+                )
+                if cfg.blur:
+                    loss_event = event_pyramid_loss(
+                        gt_event_lo, pred_event, cfg.kernel_sizes, cfg.kernel_weights
+                    )
+                else:
+                    loss_event = torch.sum((gt_event_lo - pred_event) ** 2)
+                loss_event = loss_event * cfg.balancer
+                aux["event"] = loss_event
+                if cfg.activate_events == "non_rgbd":
+                    if not rgbd:
+                        total = total + loss_event
+                elif cfg.activate_events:
+                    total = total + loss_event
 
     return total, aux
 
@@ -358,21 +362,25 @@ def _optimise_pose(loss_fn, start, lr_vec, iters, criterion, draws, keep_history
     best_cam = start
     history: Dict[str, list] = {}
     for it in range(iters):
-        x = cam_t.detach().requires_grad_()
-        total, aux = loss_fn(x, None if draws is None else draws[it])
-        if total.requires_grad:
-            (g,) = torch.autograd.grad(total, x)
-        else:  # neither loss enters the total: nothing to follow
-            g = torch.zeros_like(cam_t)
-        new_cam, adam_state = adam_update(g, adam_state, cam_t, lr_vec)
-        crit = aux[criterion].detach()
-        better = crit < best_loss
-        best_loss = torch.where(better, crit, best_loss)
-        best_cam = torch.where(better, new_cam, best_cam)
-        if keep_history:
-            for k, v in aux.items():
-                history.setdefault(k, []).append(v.detach())
-        cam_t = new_cam
+        with TRACER.span("slam.track.iter"):
+            with TRACER.span("slam.track.iter.loss"):
+                x = cam_t.detach().requires_grad_()
+                total, aux = loss_fn(x, None if draws is None else draws[it])
+            with TRACER.span("slam.track.iter.grad"):
+                if total.requires_grad:
+                    (g,) = torch.autograd.grad(total, x)
+                else:  # neither loss enters the total: nothing to follow
+                    g = torch.zeros_like(cam_t)
+            with TRACER.span("slam.track.iter.step"):
+                new_cam, adam_state = adam_update(g, adam_state, cam_t, lr_vec)
+                crit = aux[criterion].detach()
+                better = crit < best_loss
+                best_loss = torch.where(better, crit, best_loss)
+                best_cam = torch.where(better, new_cam, best_cam)
+                if keep_history:
+                    for k, v in aux.items():
+                        history.setdefault(k, []).append(v.detach())
+            cam_t = new_cam
     return best_cam, {k: torch.stack(v) for k, v in history.items()}
 
 
@@ -424,23 +432,24 @@ def track_frame(
     best_c2w [4, 4], per-iteration loss dict, bias_out [7])."""
     device = resolve_device(device)
     require_on(device, pre_c2w, pre_pre_c2w, bound)
-    with torch.no_grad():
-        init_cam_tensor = initial_pose_tensor(pre_c2w, pre_pre_c2w, const_speed)
-    dev = init_cam_tensor.device
-    if cfg.separate_lr:
-        lr_vec = torch.cat([torch.full((4,), cfg.lr * 0.2, device=dev),
-                            torch.full((3,), cfg.lr, device=dev)])
-    else:
-        lr_vec = torch.full((7,), cfg.lr, device=dev)
+    with TRACER.span("slam.track.pack"):
+        with torch.no_grad():
+            init_cam_tensor = initial_pose_tensor(pre_c2w, pre_pre_c2w, const_speed)
+        dev = init_cam_tensor.device
+        if cfg.separate_lr:
+            lr_vec = torch.cat([torch.full((4,), cfg.lr * 0.2, device=dev),
+                                torch.full((3,), cfg.lr, device=dev)])
+        else:
+            lr_vec = torch.full((7,), cfg.lr, device=dev)
 
-    if settings.fused_decode and settings.nice:
-        # pack the frozen map snapshot once: every iteration's decode then
-        # needs a single gather per grid family, and the decode kernels find
-        # the trio's weights packed
-        if "fc_packed" not in grids:
-            grids = pack_grids_for_tracking(grids)
-        grids = pack_decoders_for_tracking(decoders, grids)
-    replicas = None if dp is None else [replicate((decoders, grids, bound), d) for d in dp]
+        if settings.fused_decode and settings.nice:
+            # pack the frozen map snapshot once: every iteration's decode then
+            # needs a single gather per grid family, and the decode kernels find
+            # the trio's weights packed
+            if "fc_packed" not in grids:
+                grids = pack_grids_for_tracking(grids)
+            grids = pack_decoders_for_tracking(decoders, grids)
+        replicas = None if dp is None else [replicate((decoders, grids, bound), d) for d in dp]
 
     def loss_fn(cfg_, rgbd_):
         def fn(x, pixel_ij):
@@ -470,11 +479,11 @@ def track_frame(
             cfg.iters, "event", None, keep_history=False)
         bias_out = ev_best - best_cam
 
-    if event:
-        best_cam = best_cam - bias_in * bias_scale
-
-    best_c2w = torch.cat(
-        [pose_matrix_from_tensor(best_cam), torch.eye(4, device=dev)[3:4]], dim=0)
+    with TRACER.span("slam.track.pose"):
+        if event:
+            best_cam = best_cam - bias_in * bias_scale
+        best_c2w = torch.cat(
+            [pose_matrix_from_tensor(best_cam), torch.eye(4, device=dev)[3:4]], dim=0)
     return best_cam, best_c2w, losses, bias_out
 
 
@@ -569,48 +578,55 @@ class Tracker:
         best-pose selection are queued on the device and nothing here waits
         for their results. ``seed`` seeds the frame's pixel draws, unless
         ``pixel_draws`` hands them in."""
+        with TRACER.span("slam.track"):
+            return self._track(idx, gt_color, gt_depth, gt_event, pre_c2w, pre_pre_c2w,
+                               decoders, grids, seed, pixel_draws)
+
+    def _track(self, idx, gt_color, gt_depth, gt_event, pre_c2w, pre_pre_c2w, decoders,
+               grids, seed, pixel_draws):
         cfg = self.cfg
         event = cfg.use_events
         rgbd = (not event) or (idx % cfg.rgbd_every_frame == 0)
         dev = self.device
 
-        if event:
-            if self.gt_event_integrate is None:
-                self.gt_event_integrate = torch.zeros_like(gt_event)
-            (self.gt_event_integrate, gt_event_lo, prev_color_lo,
-             gt_depth_lo_flat, gt_mask_lo) = _prep_event_inputs(
-                self.gt_event_integrate, gt_event, self.pre_gt_color, gt_depth,
-                self.lo_hw, self.cfg.prev_resize,
-            )
-        else:
-            lo_h, lo_w = self.lo_hw
-            gt_event_lo = torch.zeros((lo_h, lo_w, 2), device=dev)
-            prev_color_lo = torch.zeros((lo_h, lo_w, 3), device=dev)
-            gt_depth_lo_flat = torch.zeros((lo_h * lo_w,), device=dev)
-            gt_mask_lo = torch.zeros((lo_h, lo_w), device=dev)
+        with TRACER.span("slam.track.inputs"):
+            if event:
+                if self.gt_event_integrate is None:
+                    self.gt_event_integrate = torch.zeros_like(gt_event)
+                (self.gt_event_integrate, gt_event_lo, prev_color_lo,
+                 gt_depth_lo_flat, gt_mask_lo) = _prep_event_inputs(
+                    self.gt_event_integrate, gt_event, self.pre_gt_color, gt_depth,
+                    self.lo_hw, self.cfg.prev_resize,
+                )
+            else:
+                lo_h, lo_w = self.lo_hw
+                gt_event_lo = torch.zeros((lo_h, lo_w, 2), device=dev)
+                prev_color_lo = torch.zeros((lo_h, lo_w, 3), device=dev)
+                gt_depth_lo_flat = torch.zeros((lo_h * lo_w,), device=dev)
+                gt_mask_lo = torch.zeros((lo_h, lo_w), device=dev)
 
-        const_speed = bool(self.cfg.const_speed and pre_pre_c2w is not None)
-        pre_c2w = self._on_device(pre_c2w)
-        pre_pre_c2w = (
-            self._on_device(pre_pre_c2w) if pre_pre_c2w is not None
-            else torch.eye(4, dtype=torch.float32, device=dev)
-        )
-        calibrate = bool(cfg.bias_correction and event and rgbd and idx > 0)
-        apply_bias = bool(
-            cfg.bias_correction and event and not rgbd
-            and self.event_bias is not None
-        )
-        if apply_bias and cfg.bias_scale_mode == "window":
-            scale = (idx % cfg.rgbd_every_frame) / cfg.rgbd_every_frame
-        else:
-            scale = 1.0
-        scale *= cfg.bias_alpha
-        bias_in = (
-            self.event_bias if apply_bias
-            else torch.zeros((7,), dtype=torch.float32, device=dev)
-        )
-        # draws are made on the device the frame lives on: no copy per step
-        generator = torch.Generator(device=dev).manual_seed(seed)
+            const_speed = bool(self.cfg.const_speed and pre_pre_c2w is not None)
+            pre_c2w = self._on_device(pre_c2w)
+            pre_pre_c2w = (
+                self._on_device(pre_pre_c2w) if pre_pre_c2w is not None
+                else torch.eye(4, dtype=torch.float32, device=dev)
+            )
+            calibrate = bool(cfg.bias_correction and event and rgbd and idx > 0)
+            apply_bias = bool(
+                cfg.bias_correction and event and not rgbd
+                and self.event_bias is not None
+            )
+            if apply_bias and cfg.bias_scale_mode == "window":
+                scale = (idx % cfg.rgbd_every_frame) / cfg.rgbd_every_frame
+            else:
+                scale = 1.0
+            scale *= cfg.bias_alpha
+            bias_in = (
+                self.event_bias if apply_bias
+                else torch.zeros((7,), dtype=torch.float32, device=dev)
+            )
+            # draws are made on the device the frame lives on: no copy per step
+            generator = torch.Generator(device=dev).manual_seed(seed)
         best_cam, c2w, losses, bias_out = track_frame(
             pre_c2w,
             pre_pre_c2w,

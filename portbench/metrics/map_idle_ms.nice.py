@@ -1,0 +1,4 @@
+"""map_idle_ms.nice: ``map_idle_ms`` in a host-bound cell, where it is read beside the
+cell's memory and set-up, the end-to-end metrics that hold a bound there."""
+
+from portbench.metrics.map_idle_ms import read  # noqa: F401

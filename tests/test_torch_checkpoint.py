@@ -135,13 +135,15 @@ def test_metrics_logger_writes_the_jax_packages_lines(tmp_path):
             return [{k: v for k, v in json.loads(line).items() if k != "t"} for line in f]
 
     assert lines("port") == lines("jax") == recs
-    timers = {}
-    for pkg in (jtel, ttel):
-        t = pkg.PhaseTimers()
-        t.total.update(track=1.25, map=0.5)
-        t.count.update(track=5, map=2)
-        timers[pkg] = t.summary()
-    assert timers[jtel] == timers[ttel]
+    # the tracer's totals by span name summarise as the JAX package's phase
+    # timers do, under the same keys and rounding
+    timers = jtel.PhaseTimers()
+    timers.total.update(track=1.25, map=0.5)
+    timers.count.update(track=5, map=2)
+    tracer = ttel.Tracer()
+    tracer.total.update({"slam.track": 1.25, "slam.map": 0.5})
+    tracer.count.update({"slam.track": 5, "slam.map": 2})
+    assert tracer.summary() == timers.summary()
 
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):
