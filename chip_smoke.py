@@ -167,6 +167,7 @@ from evennicer_slam_tpu_torch.mesh.mesher import Mesher  # noqa: E402
 from evennicer_slam_tpu_torch.mesh.trimesh_lite import Mesh  # noqa: E402
 from evennicer_slam_tpu_torch.models.decoders import (  # noqa: E402
     init_nice_decoders,
+    nice_forward_packed,
     pack_grids_for_tracking,
 )
 from evennicer_slam_tpu_torch.models import eventnet_train  # noqa: E402
@@ -174,7 +175,7 @@ from evennicer_slam_tpu_torch.models.eventnet import init_eventnet, load_eventne
 from evennicer_slam_tpu_torch.models.eventnet_train import make_pair_batch  # noqa: E402
 from evennicer_slam_tpu_torch.models.grids import init_grids  # noqa: E402
 from evennicer_slam_tpu_torch.ops import cuda_build, fused_decode  # noqa: E402
-from evennicer_slam_tpu_torch.ops.grid_sample import packed_rows_and_frac  # noqa: E402
+from evennicer_slam_tpu_torch.ops.grid_sample import packed_index_and_frac  # noqa: E402
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest  # noqa: E402
 from evennicer_slam_tpu_torch.render.renderer import (  # noqa: E402
     Renderer,
@@ -263,9 +264,14 @@ MLP_MACS = (2 * 93 * 32 + 4 * 32 * 32 + 5 * 32 * 32 + 32 * 1) \
     + (2 * 93 * 32 + 4 * 32 * 32 + 5 * 64 * 32 + 32 * 1) \
     + (2 * 93 * 32 + 4 * 32 * 32 + 5 * 32 * 32 + 32 * 4)
 F32_MACS = 3 * 279 + 8 * 96
-BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16
-# the backward, per point. Bytes: point, fractions and rows in (rows counted
-# once), the cotangent in, three cotangents out. Operations: the recomputed
+# point, fractions and two cell indices in, raw out; the rows of the cells the
+# points fall in are counted apart, each distinct row once (decode_bound)
+BYTES_PER_POINT = 3 * 12 + 2 * 4 + 16
+# one decode forward allocates its [N, 4] output and at most this much more
+# (the rows gathered outside the kernel took 1,536 B a point)
+FWD_EXTRA_BYTES_MAX = 20 * 10**6
+# the backward, per point. Bytes: point, fractions and cell indices in, the
+# cotangent in, three cotangents out (the distinct rows apart, once). Operations: the recomputed
 # forward (without its heads' 6 x 32, which the backward does not need, but
 # counted: the difference is 0.4 %), then the reverse pass: per MLP two
 # embedding products, four hidden products and five feature products (the
@@ -278,7 +284,7 @@ BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16
 # weights 8x96).
 BWD_HEAD_MACS = 32 * 1 + 32 * 1 + 32 * 4
 BWD_MLP_MACS = 3 * (2 * 93 * 32 + 4 * 32 * 32 + 5 * 32 * 32) + BWD_HEAD_MACS  # 45,696
-BWD_BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16 + 3 * 12
+BWD_BYTES_PER_POINT = 3 * 12 + 2 * 4 + 16 + 3 * 12
 # Backward kernel against autograd of the plain version. Both round every
 # transposed product's result to bf16, so a last-bit difference of two f32
 # sums can flip one rounding (one part in 256 of that cotangent), and a
@@ -294,8 +300,9 @@ BWD_BYTES_PER_POINT = 3 * 12 + 512 + 1024 + 16 + 3 * 12
 BWD_TOL = 5e-3
 BWD_OUTLIER_SHARE = 1e-4
 BWD_PLAIN_CHUNK = 220320  # autograd of the plain version walks N_MAIN in 4 chunks
-FWD_DESIGN = ("mma.sync m16n8k16 bf16 with f32 accumulators, warp tiles of {points} "
-              "points, one persistent block per SM, weights resident in shared memory")
+FWD_DESIGN = ("rows read from the packed grids at each point's cell; mma.sync m16n8k16 "
+              "bf16 with f32 accumulators, warp tiles of {points} points, one persistent "
+              "block per SM, weights resident in shared memory")
 BWD_DESIGN = ("forward recompute and reverse products as mma.sync m16n8k16 bf16, warp "
               "tiles of {points} points, one persistent block per SM, weights resident "
               "in shared memory")
@@ -328,21 +335,29 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(end) / iters
 
 
-def decode_bound(n, param_bytes):
+def row_bytes(args):
+    """Bytes of the distinct packed rows the decode's points fall in."""
+    idx_m, idx_f, packed_m, packed_f = args[3:7]
+    return (int(torch.unique(idx_m).numel()) * packed_m.shape[-1] * 2
+            + int(torch.unique(idx_f).numel()) * packed_f.shape[-1] * 2)
+
+
+def decode_bound(n, param_bytes, rows):
     """Least time in ms the card could take for the decode of ``n`` points:
-    each input read once and the output written once at the memory rate,
-    against the operations at the peak rate for their type."""
-    t_bytes = (n * BYTES_PER_POINT + param_bytes) / PEAK_BYTES_S
+    each input read once (``rows``: bytes of the distinct rows, once) and the
+    output written once at the memory rate, against the operations at the peak
+    rate for their type."""
+    t_bytes = (n * BYTES_PER_POINT + param_bytes + rows) / PEAK_BYTES_S
     t_ops = n * (2 * MLP_MACS / PEAK_BF16_FLOPS + 2 * F32_MACS / PEAK_F32_FLOPS)
     by = "bytes" if t_bytes >= t_ops else "operations"
     return 1e3 * max(t_bytes, t_ops), by, 1e3 * t_bytes, 1e3 * t_ops
 
 
-def decode_bwd_bound(n, param_bytes):
+def decode_bwd_bound(n, param_bytes, rows):
     """Least time in ms the card could take for the backward of ``n`` points,
     as :func:`decode_bound`; also the operation time if the reverse products
     had to run at the f32 rate (cotangents not taken as bf16 values)."""
-    t_bytes = (n * BWD_BYTES_PER_POINT + param_bytes) / PEAK_BYTES_S
+    t_bytes = (n * BWD_BYTES_PER_POINT + param_bytes + rows) / PEAK_BYTES_S
     bf16_macs = MLP_MACS + BWD_MLP_MACS - BWD_HEAD_MACS
     f32_macs = 2 * F32_MACS + BWD_HEAD_MACS
     t_ops = n * (2 * bf16_macs / PEAK_BF16_FLOPS + 2 * f32_macs / PEAK_F32_FLOPS)
@@ -387,26 +402,68 @@ def make_scene(dev):
 
 
 def decode_inputs(packed, bound_t, n, dev, seed):
-    """n query points in and slightly around the bound, with their gathered
-    rows and fractions, as nice_forward_packed makes them."""
+    """n query points in and slightly around the bound, with their cell
+    indices and fractions and the two packed grids, as nice_forward_packed
+    hands them to the kernels."""
     rng = np.random.default_rng(seed)
     half = (BOUND[:, 1] - BOUND[:, 0]) / 2
     p = torch.from_numpy(
         (rng.uniform(-1.1, 1.1, (n, 3)) * half).astype(np.float32)).to(dev)
     p_nor = normalize_3d_coordinate(p, bound_t)
-    rows_m, frac_m = packed_rows_and_frac(packed["middle_packed"], p_nor)
-    rows_f, frac_f = packed_rows_and_frac(packed["fc_packed"], p_nor)
-    return p, frac_m, frac_f, rows_m, rows_f
+    packed_m, packed_f = packed["middle_packed"], packed["fc_packed"]
+    idx_m, frac_m = packed_index_and_frac(packed_m, p_nor)
+    idx_f, frac_f = packed_index_and_frac(packed_f, p_nor)
+    return p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f
+
+
+def rows_of(args):
+    """The plain version's arguments: the points' rows gathered."""
+    p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f = args
+    return (p, frac_m, frac_f, fused_decode.gather_rows(packed_m, idx_m),
+            fused_decode.gather_rows(packed_f, idx_f))
+
+
+def as_grids(args):
+    """The same decode with the rows gathered outside the kernels: each
+    row array is a grid of N cells, and point n reads cell n."""
+    p, frac_m, frac_f, rows_m, rows_f = rows_of(args)
+    seq = torch.arange(p.shape[0], dtype=torch.int32, device=p.device)
+    return (p, frac_m, frac_f, seq, seq, rows_m.view(-1, 1, 1, rows_m.shape[-1]),
+            rows_f.view(-1, 1, 1, rows_f.shape[-1]))
+
+
+def extra_bytes(fn, out_bytes):
+    """Device memory ``fn()`` allocates at its peak beyond ``out_bytes`` (its
+    output), from a settled allocator; whatever it returns is kept until the
+    peak is read."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - out_bytes
+    del out
+    return int(extra)
 
 
 def check_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
+    """The forward kernel against its plain version on the points' gathered
+    rows, and bit for bit against itself fed those rows (:func:`as_grids`);
+    its count of gathered points and, at the main-path size, the memory one
+    decode forward allocates; times by CUDA events."""
     args = decode_inputs(packed, bound_t, n, dev, seed=SEED + n)
+    w16, f32 = fused_decode.pack_trio_weights(decoders)
     with torch.no_grad():
+        gathered = fused_decode.fused_decode_packed.gathered_points
         out = fused_decode.fused_decode_packed(decoders, *args)
         torch.cuda.synchronize()
-        ref = fused_decode.fused_decode_packed_plain(decoders, *args)
+        gathered = fused_decode.fused_decode_packed.gathered_points - gathered
+        bitwise = torch.equal(
+            out, fused_decode.launch_fused_decode_fwd(*as_grids(args), w16, f32))
+        torch.cuda.synchronize()
+        ref = fused_decode.fused_decode_packed_plain(decoders, *rows_of(args))
         with exact_products():
-            exact = fused_decode.fused_decode_packed_plain(decoders, *args)
+            exact = fused_decode.fused_decode_packed_plain(decoders, *rows_of(args))
         torch.cuda.synchronize()
         if out.shape != (n, 4) or not bool(torch.isfinite(out).all()):
             raise RuntimeError(f"kernel output at N={n}: bad shape or non-finite")
@@ -419,22 +476,34 @@ def check_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
         fixed = int(OUTLIER_SHARE * out.numel())  # 0 at N = 1,500
         allowed, allowed_far = max(fixed, 2 * plain_bad), 2 * plain_far
         rel_norm = float((out - ref).norm() / ref.norm())
-        w16, f32 = fused_decode.pack_trio_weights(decoders)
+        del ref, exact
+        out_bytes = n * 4 * 4
+        fwd_extra = extra_bytes(
+            lambda: fused_decode.fused_decode_packed(decoders, *args, weights=(w16, f32)),
+            out_bytes)
         ms = cuda_ms(lambda: fused_decode.fused_decode_packed(decoders, *args), iters)
         kernel_only_ms = cuda_ms(
             lambda: fused_decode.launch_fused_decode_fwd(*args, w16, f32), iters)
         plain_ms = cuda_ms(
-            lambda: fused_decode.fused_decode_packed_plain(decoders, *args),
+            lambda: fused_decode.fused_decode_packed_plain(decoders, *rows_of(args)),
             plain_iters)
+    # the tracking decode from the points, the points' gradient on: the cell
+    # indices, fractions and what autograd keeps for the backward
+    q = args[0].detach().clone().requires_grad_()
+    track_extra = extra_bytes(
+        lambda: nice_forward_packed(decoders, packed, q, bound_t), out_bytes)
     param_bytes = w16.numel() * 2 + f32.numel() * 4
-    bound_ms, bound_by, t_bytes, t_ops = decode_bound(n, param_bytes)
+    rows = row_bytes(args)
+    bound_ms, bound_by, t_bytes, t_ops = decode_bound(n, param_bytes, rows)
     res = {
         "n": n, "max_abs_err": max_abs, "max_rel_err": max_rel,
         "rel_norm_err": rel_norm, "outside_tolerance": n_bad,
         "outside_allowed": allowed, "outside_10x_tolerance": n_far,
         "outside_10x_allowed": allowed_far, "fixed_allowance": fixed,
         "plain_vs_exact": [plain_bad, plain_far], "kernel_vs_exact": [exact_bad, exact_far],
-        "atol": ATOL, "rtol": RTOL, "ms": ms, "kernel_only_ms": kernel_only_ms,
+        "atol": ATOL, "rtol": RTOL, "bitwise_vs_rows": bitwise, "gathered_points": gathered,
+        "fwd_extra_bytes": fwd_extra, "track_decode_extra_bytes": track_extra,
+        "distinct_row_bytes": rows, "ms": ms, "kernel_only_ms": kernel_only_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
     }
@@ -449,28 +518,43 @@ def check_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
             f"kernel at N={n} is further from the exact arithmetic than the plain version: "
             f"{exact_bad} / {exact_far} values outside the tolerance / ten times it, "
             f"plain {plain_bad} / {plain_far}")
+    if not bitwise:
+        raise RuntimeError(f"kernel at N={n} differs from itself fed gathered rows")
+    if gathered != n:
+        raise RuntimeError(f"kernel at N={n} counted {gathered} gathered points")
+    if fwd_extra > FWD_EXTRA_BYTES_MAX:
+        raise RuntimeError(f"one decode forward at N={n} allocated {fwd_extra} B "
+                           f"beyond its output ({FWD_EXTRA_BYTES_MAX} allowed)")
     return res
 
 
 def check_bwd_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
     """The backward kernel against autograd of the plain version on the same
-    inputs and a seeded cotangent; times by CUDA events."""
+    inputs and a seeded cotangent, and bit for bit against itself fed the
+    gathered rows; times by CUDA events."""
     args = decode_inputs(packed, bound_t, n, dev, seed=SEED + n)
     g = torch.from_numpy(np.random.default_rng(SEED + n + 1).standard_normal(
         (n, 4)).astype(np.float32)).to(dev)
     w16, f32 = fused_decode.pack_trio_weights(decoders)
     chunk = BWD_PLAIN_CHUNK if n > BWD_PLAIN_CHUNK else None
+    gathered = fused_decode.fused_decode_packed.gathered_points
     got = fused_decode.launch_fused_decode_bwd(*args, w16, f32, g)
     torch.cuda.synchronize()
-    want = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk)
+    gathered = fused_decode.fused_decode_packed.gathered_points - gathered
+    via_rows = fused_decode.launch_fused_decode_bwd(*as_grids(args), w16, f32, g)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, via_rows))
+    del via_rows
+    want = fused_decode.fused_decode_bwd_plain(decoders, *rows_of(args), g, chunk=chunk)
     torch.cuda.synchronize()
     with exact_products():
-        exact = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk)
+        exact = fused_decode.fused_decode_bwd_plain(decoders, *rows_of(args), g, chunk=chunk)
     torch.cuda.synchronize()
     big = n > 10000
     fixed = int(BWD_OUTLIER_SHARE * 3 * n) if big else 2
     fixed_far = fixed // 10 if big else 0
-    res = {"n": n, "tol": BWD_TOL, "fixed_allowance": [fixed, fixed_far]}
+    res = {"n": n, "tol": BWD_TOL, "fixed_allowance": [fixed, fixed_far],
+           "bitwise_vs_rows": bitwise, "gathered_points": gathered}
     failed = []
     for name, o, r, x in zip(("dp", "dfrac_m", "dfrac_f"), got, want, exact):
         if o.shape != (n, 3) or not bool(torch.isfinite(o).all()):
@@ -500,17 +584,22 @@ def check_bwd_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
     res["kernel_only_ms"] = cuda_ms(
         lambda: fused_decode.launch_fused_decode_bwd(*args, w16, f32, g), iters)
     res["plain_ms"] = cuda_ms(
-        lambda: fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=chunk),
+        lambda: fused_decode.fused_decode_bwd_plain(decoders, *rows_of(args), g, chunk=chunk),
         plain_iters)
     res["plain_chunks"] = 1 if chunk is None else -(-n // chunk)
     param_bytes = w16.numel() * 2 + f32.numel() * 4
+    res["distinct_row_bytes"] = rows = row_bytes(args)
     (res["bound_ms"], res["bound_by"], res["bound_bytes_ms"], res["bound_operations_ms"],
-     res["bound_operations_ms_if_f32_cotangents"]) = decode_bwd_bound(n, param_bytes)
+     res["bound_operations_ms_if_f32_cotangents"]) = decode_bwd_bound(n, param_bytes, rows)
     res["max_abs_err"] = max(res[k]["max_abs_err"] for k in ("dp", "dfrac_m", "dfrac_f"))
     say(f"backward kernel vs autograd of the plain version at N={n}: " + json.dumps(res))
     if failed:
         raise RuntimeError(
             f"backward kernel disagrees with its plain version at N={n}: {failed}")
+    if not bitwise:
+        raise RuntimeError(f"backward kernel at N={n} differs from itself fed gathered rows")
+    if gathered != n:
+        raise RuntimeError(f"backward kernel at N={n} counted {gathered} gathered points")
     return res
 
 
@@ -576,9 +665,11 @@ def main_path_inputs(cfg, bound_t, dev):
 def plain_decode():
     """Send the decode of every render inside the block through the plain
     PyTorch version instead of the kernels (autograd differentiates it)."""
-    def plain(decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim=32, weights=None):
+    def plain(decoders, p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f, c_dim=32,
+              weights=None):
         return fused_decode.fused_decode_packed_plain(
-            decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim)
+            decoders, p, frac_m, frac_f, fused_decode.gather_rows(packed_m, idx_m),
+            fused_decode.gather_rows(packed_f, idx_f), c_dim)
 
     kernel_fn = fused_decode.fused_decode_packed
     fused_decode.fused_decode_packed = plain
@@ -3046,6 +3137,8 @@ def main():
         "n_points": N_MAIN,
         "kernel_only_ms": main_res["kernel_only_ms"],
         "bound_share": main_res["bound_ms"] / main_res["kernel_only_ms"],
+        "fwd_extra_bytes": main_res["fwd_extra_bytes"],
+        "track_decode_extra_bytes": main_res["track_decode_extra_bytes"],
         "design": FWD_DESIGN.format(points=ptxas["fused_decode"]["points_per_warp"]),
         **ptxas["fused_decode"],
         "launches_render_img": launches_img,

@@ -2,11 +2,12 @@
 //
 // Replaces the TPU Pallas kernel `_fwd_kernel` of
 // evennicer_slam_tpu/ops/fused_decode.py (launched by `_fused_fwd_impl`).
-// For every query point it computes, without any activation touching device
-// memory:
+// For every query point it computes, without any row or activation touching
+// device memory:
 //   1. the 8 trilinear corner weights from the two fraction triples,
-//   2. the corner reduction of the gathered packed rows (bf16) to the
-//      features middle[32] | fine[32] | colour[32], in f32,
+//   2. the corner reduction of the point's packed-corner rows (bf16), read
+//      from the two read-only packed grids at the point's cell indices, to
+//      the features middle[32] | fine[32] | colour[32], in f32,
 //   3. for each of the three MLPs (middle, fine, colour) the f32 Fourier
 //      embedding sin(p . B) (93 wide) and five width-32 blocks with per-block
 //      feature injection and the skip [emb | h] into block 3,
@@ -28,13 +29,16 @@
 // arguments; the only remaining difference is the order of the f32 sums
 // inside the MLP products (the tensor cores' own).
 //
-// What bounds it on an H100: each point reads 1,536 B of gathered rows and
-// 36 B of point/fractions and writes 16 B, against 50,816 multiply-adds with
-// bf16 operands and 279 sines. At 3.35 TB/s and the bf16 tensor-core peak
-// the memory time (0.42 ms at N = 881,280) is about four times the product
-// time, so the floor is the row traffic. On the CUDA cores the products alone
-// would cost 1.3 ms of f32 FMA at N = 881,280, and about twice that counting
-// the bf16 unpacks: they have to run on the tensor cores.
+// What bounds it on an H100: each point reads 44 B of point, fractions and
+// cell indices and writes 16 B, and the rows of its two cells (1,536 B),
+// against 50,816 multiply-adds with bf16 operands and 279 sines. A ray's
+// samples and its neighbours share cells, so the distinct rows a call reads
+// are far fewer than its points and mostly hit L2: the memory floor is the
+// points' own 60 B (0.02 ms at N = 881,280 and 3.35 TB/s) plus the distinct
+// rows once, against 0.09 ms of products at the bf16 tensor-core peak. On the
+// CUDA cores the products alone would cost 1.3 ms of f32 FMA at N = 881,280,
+// and about twice that counting the bf16 unpacks: they have to run on the
+// tensor cores.
 //
 // Design. The three MLPs keep their own weights (51,200 bf16 values with the
 // embedding padded to 96 rows, 102 KB, swizzled for ldmatrix) and are staged
@@ -43,9 +47,10 @@
 // their own tiles of 16 x FD_MTILES points (warp-level grid stride), so no
 // block-wide barrier sits in the tile loop and one warp's row loads overlap
 // the others' products. Per tile:
-//   A. half-warps stream the packed rows of one point each with coalesced
-//      4-byte loads, reduce over the 8 corners and leave the features in the
-//      warp's own shared-memory buffer as bf16 rows;
+//   A. half-warps stream the packed rows of one point each straight from the
+//      grids (cell indices fetched a tile ahead, handed round by shuffles)
+//      with coalesced 4-byte loads, reduce over the 8 corners and leave the
+//      features in the warp's own shared-memory buffer as bf16 rows;
 //   B. the three MLPs on the tensor cores (mlp_forward in the header): the
 //      feature's A fragments are loaded once per MLP and kept through its five
 //      blocks, the hidden state stays in registers, each lane computes the
@@ -123,8 +128,10 @@ __device__ __forceinline__ void head(const float* fsm, const float (&h)[MT][4][4
 
 __global__ void __launch_bounds__(THREADS, 1)
 fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ frac_m,
-                        const float* __restrict__ frac_f, const uint32_t* __restrict__ rows_m,
-                        const uint32_t* __restrict__ rows_f, const uint4* __restrict__ w_bf16,
+                        const float* __restrict__ frac_f, const int* __restrict__ idx_m,
+                        const int* __restrict__ idx_f, const uint32_t* __restrict__ packed_m,
+                        const uint32_t* __restrict__ packed_f, uint32_t cells_m,
+                        uint32_t cells_f, const uint4* __restrict__ w_bf16,
                         const uint4* __restrict__ w_f32, float4* __restrict__ out,
                         long long n_points, long long n_tiles) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -138,12 +145,19 @@ fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f
     __syncthreads();
 
     // warp-major over the blocks, so a short launch spreads over the SMs
-    for (long long tile = (long long)warp * gridDim.x + blockIdx.x; tile < n_tiles;
-         tile += (long long)gridDim.x * WARPS) {
+    const long long stride = (long long)gridDim.x * WARPS;
+    long long tile = (long long)warp * gridDim.x + blockIdx.x;
+    uint32_t cells[MT];
+    load_cells<MT>(cells, idx_m, idx_f, tile * NP, n_points, lane);
+    for (; tile < n_tiles; tile += stride) {
         const long long base = tile * NP;
+        // the next tile's cell indices, in flight through this tile's work
+        uint32_t ahead[MT];
+        load_cells<MT>(ahead, idx_m, idx_f, base + stride * NP, n_points, lane);
 
-        // ---- phase A: corner reduction into the warp's feature rows ------
-        reduce_corners<NP>(feat, frac_m, frac_f, rows_m, rows_f, base, n_points, lane);
+        // ---- phase A: gather and corner reduction into the feature rows --
+        reduce_corners<NP, MT>(feat, frac_m, frac_f, cells, packed_m, packed_f, cells_m,
+                               cells_f, base, n_points, lane);
         __syncwarp();
 
         // ---- phase B: the three MLPs on the tensor cores -----------------
@@ -176,6 +190,8 @@ fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f
             }
         }
         __syncwarp();  // the next tile's phase A overwrites the features
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) cells[mt] = ahead[mt];
     }
 }
 
@@ -183,12 +199,18 @@ fused_decode_fwd_kernel(const float* __restrict__ p, const float* __restrict__ f
 
 // Launch on `stream` (PyTorch's current stream). No synchronisation, no
 // allocation. Returns cudaGetLastError() (0 on success). All pointers must be
-// 16-byte aligned; rows are bf16 [n][256] and [n][512]; w_bf16 / w_f32 are
-// the packed parameter buffers in the layout of fused_decode_common.cuh.
+// 16-byte aligned; idx_m / idx_f are int32 [n], each point's cell in the
+// packed-corner grids packed_m (bf16 [cells_m][256]) and packed_f (bf16
+// [cells_f][512]); w_bf16 / w_f32 are the packed parameter buffers in the
+// layout of fused_decode_common.cuh.
 extern "C" int fused_decode_fwd(const void* p, const void* frac_m, const void* frac_f,
-                                const void* rows_m, const void* rows_f, const void* w_bf16,
-                                const void* w_f32, void* out, long long n_points, void* stream) {
+                                const void* idx_m, const void* idx_f, const void* packed_m,
+                                const void* packed_f, long long cells_m, long long cells_f,
+                                const void* w_bf16, const void* w_f32, void* out,
+                                long long n_points, void* stream) {
     if (n_points <= 0) return 0;
+    if (cells_m <= 0 || cells_f <= 0 || cells_m > 0x7fffffffLL || cells_f > 0x7fffffffLL)
+        return int(cudaErrorInvalidValue);
     int dev = 0, n_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return int(err);
@@ -201,8 +223,10 @@ extern "C" int fused_decode_fwd(const void* p, const void* frac_m, const void* f
     const int grid = n_tiles < n_sm ? int(n_tiles) : n_sm;
     fused_decode_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(frac_m),
-        static_cast<const float*>(frac_f), static_cast<const uint32_t*>(rows_m),
-        static_cast<const uint32_t*>(rows_f), static_cast<const uint4*>(w_bf16),
+        static_cast<const float*>(frac_f), static_cast<const int*>(idx_m),
+        static_cast<const int*>(idx_f), static_cast<const uint32_t*>(packed_m),
+        static_cast<const uint32_t*>(packed_f), uint32_t(cells_m), uint32_t(cells_f),
+        static_cast<const uint4*>(w_bf16),
         static_cast<const uint4*>(w_f32), static_cast<float4*>(out), n_points, n_tiles);
     return int(cudaGetLastError());
 }

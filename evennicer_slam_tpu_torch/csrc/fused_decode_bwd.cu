@@ -4,8 +4,8 @@
 // evennicer_slam_tpu/ops/fused_decode.py (launched by `_fused_call_bwd`).
 // For every query point it takes the cotangent g[4] of raw = (colour rgb,
 // middle + fine occupancy) and returns the cotangents of the point and of the
-// two fraction triples: dp[3], dfrac_m[3], dfrac_f[3]. Rows and decoder
-// weights are frozen and get nothing. The forward is recomputed per tile by
+// two fraction triples: dp[3], dfrac_m[3], dfrac_f[3]. The packed grids and
+// the decoder weights are frozen and get nothing. The forward is recomputed per tile by
 // the very device function the forward kernel runs (mlp_forward in
 // fused_decode_common.cuh); no activation touches device memory.
 //
@@ -25,20 +25,25 @@
 //     (the five feature injections, the two uses of the embedding) are f32.
 //     The weights in the transposed products are the forward's bf16 values.
 //
-// What bounds it on an H100: per point 1,588 B in and 36 B out against the
-// recomputed forward (50,816 multiply-adds with bf16 operands, 279 sines) and
-// 45,696 multiply-adds of the reverse pass (279 cosines). Every cotangent
-// that enters a transposed product, the head's apart, is a bf16 value
-// (rounded as said above), so the tensor cores take those products: at
-// N = 881,280 the operations come to 0.26 ms against 0.43 ms for the bytes,
-// and the floor is the bytes. On the CUDA cores (f32 FMA, one thread per
-// point) the products alone would take 85 G multiply-adds at this size, about
-// 5 ms of instructions: they have to run on the tensor cores.
+// What bounds it on an H100: per point 60 B in (point, fractions, cell
+// indices, cotangent) and 36 B out, and the rows of its two cells read twice
+// from the grids (1,536 B each time, mostly from L2: neighbouring samples
+// share cells), against the recomputed forward (50,816 multiply-adds with
+// bf16 operands, 279 sines) and 45,696 multiply-adds of the reverse pass (279
+// cosines). Every cotangent that enters a transposed product, the head's
+// apart, is a bf16 value (rounded as said above), so the tensor cores take
+// those products: at N = 881,280 the operations come to 0.26 ms against
+// 0.03 ms for the points' own bytes and 0.06 ms for every row of both grids
+// of the benchmark's room once, and the floor is the operations. On the CUDA
+// cores (f32 FMA, one thread per point) the products alone would take 85 G
+// multiply-adds at this size, about 5 ms of instructions: they have to run on
+// the tensor cores.
 //
 // Design: the forward kernel's block and warp shape (one persistent block per
 // SM, the weights resident in shared memory, FD_BWD_WARPS warps each walking
 // its own tiles of 16 x FD_BWD_MTILES points). Per tile:
-//   A. corner reduction into the warp's feature rows (as the forward);
+//   A. gather and corner reduction into the warp's feature rows (as the
+//      forward, the cell indices fetched a tile ahead);
 //   B. per MLP: the forward recompute on the tensor cores keeps only the ReLU
 //      signs (5 x 16 bits a lane per m16 tile); the head's cotangent is f32 on
 //      the CUDA cores and rounded to bf16; then the reverse pass on the
@@ -52,10 +57,11 @@
 //      (sin_cos again, as the sines of the recompute) and folded into dp, which
 //      is reduced over the quad by shuffles at the end. The feature cotangents
 //      go to the warp's own buffer (16 points x 96 f32 per m16 tile);
-//   C. one point per half-warp: the rows are read a second time (from L2,
-//      1,536 B per point), dw8[k] = sum_c rows[k][c] * dfeat[c] is folded
-//      with the derivative of the corner weights per lane, and six values are
-//      reduced over the 16 lanes by shuffles.
+//   C. one point per half-warp: the rows are read a second time from the
+//      grids at the same cells (from L2, 1,536 B per point),
+//      dw8[k] = sum_c rows[k][c] * dfeat[c] is folded with the derivative of
+//      the corner weights per lane, and six values are reduced over the 16
+//      lanes by shuffles.
 
 #include "fused_decode_common.cuh"
 
@@ -271,8 +277,10 @@ __device__ __forceinline__ void mlp_backward(uint32_t wsm, const float* fsm, uin
 
 __global__ void __launch_bounds__(THREADS, 1)
 fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ frac_m,
-                        const float* __restrict__ frac_f, const uint32_t* __restrict__ rows_m,
-                        const uint32_t* __restrict__ rows_f, const uint4* __restrict__ w_bf16,
+                        const float* __restrict__ frac_f, const int* __restrict__ idx_m,
+                        const int* __restrict__ idx_f, const uint32_t* __restrict__ packed_m,
+                        const uint32_t* __restrict__ packed_f, uint32_t cells_m,
+                        uint32_t cells_f, const uint4* __restrict__ w_bf16,
                         const uint4* __restrict__ w_f32, const float4* __restrict__ g,
                         float* __restrict__ dp_out, float* __restrict__ dfrac_m,
                         float* __restrict__ dfrac_f, long long n_points, long long n_tiles) {
@@ -289,12 +297,19 @@ fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ f
     stage_params<THREADS>(smem, w_bf16, w_f32, threadIdx.x);
     __syncthreads();
 
-    for (long long tile = (long long)warp * gridDim.x + blockIdx.x; tile < n_tiles;
-         tile += (long long)gridDim.x * WARPS) {
+    const long long stride = (long long)gridDim.x * WARPS;
+    long long tile = (long long)warp * gridDim.x + blockIdx.x;
+    uint32_t cells[MT];
+    load_cells<MT>(cells, idx_m, idx_f, tile * NP, n_points, lane);
+    for (; tile < n_tiles; tile += stride) {
         const long long base = tile * NP;
+        // the next tile's cell indices, in flight through this tile's work
+        uint32_t ahead[MT];
+        load_cells<MT>(ahead, idx_m, idx_f, base + stride * NP, n_points, lane);
 
-        // ---- phase A: corner reduction into the warp's feature rows ------
-        reduce_corners<NP>(feat, frac_m, frac_f, rows_m, rows_f, base, n_points, lane);
+        // ---- phase A: gather and corner reduction into the feature rows --
+        reduce_corners<NP, MT>(feat, frac_m, frac_f, cells, packed_m, packed_f, cells_m,
+                               cells_f, base, n_points, lane);
         __syncwarp();
 
         // ---- phase B: forward recompute and reverse pass per MLP ---------
@@ -339,14 +354,16 @@ fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ f
         for (int i = lane >> 4; i < NP; i += 2) {
             const long long nn = base + i;
             const bool valid = nn < n_points;
+            const CellRows rows =
+                cell_rows<MT>(cells, i, packed_m, packed_f, cells_m, cells_f, lane);
             float gm[3] = {0.f, 0.f, 0.f}, gf[3] = {0.f, 0.f, 0.f};
             if (valid) {
                 const float* drow = dfeat + i * DFEAT_STRIDE + 2 * hl;
                 const float2 dm = *reinterpret_cast<const float2*>(drow);
                 const float2 dfn = *reinterpret_cast<const float2*>(drow + 32);
                 const float2 dc = *reinterpret_cast<const float2*>(drow + 64);
-                const uint32_t* rm = rows_m + nn * 128 + hl;
-                const uint32_t* rf = rows_f + nn * 256 + hl;
+                const uint32_t* rm = rows.m;
+                const uint32_t* rf = rows.f;
                 float dwm[8], dwf[8];
 #pragma unroll
                 for (int k = 0; k < 8; ++k) {
@@ -377,6 +394,8 @@ fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ f
             }
         }
         __syncwarp();  // the next tile overwrites features and cotangents
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) cells[mt] = ahead[mt];
     }
 }
 
@@ -384,14 +403,19 @@ fused_decode_bwd_kernel(const float* __restrict__ p, const float* __restrict__ f
 
 // Launch on `stream` (PyTorch's current stream). No synchronisation, no
 // allocation. Returns cudaGetLastError() (0 on success). All pointers must be
-// 16-byte aligned; rows are bf16 [n][256] and [n][512]; g is f32 [n][4];
-// dp, dfrac_m, dfrac_f are f32 [n][3]; w_bf16 / w_f32 are the packed
-// parameter buffers of the forward (fused_decode_common.cuh).
+// 16-byte aligned; idx_m / idx_f and the packed grids as for the forward
+// (fused_decode.cu); g is f32 [n][4]; dp, dfrac_m, dfrac_f are f32 [n][3];
+// w_bf16 / w_f32 are the packed parameter buffers of the forward
+// (fused_decode_common.cuh).
 extern "C" int fused_decode_bwd(const void* p, const void* frac_m, const void* frac_f,
-                                const void* rows_m, const void* rows_f, const void* w_bf16,
-                                const void* w_f32, const void* g, void* dp, void* dfrac_m,
-                                void* dfrac_f, long long n_points, void* stream) {
+                                const void* idx_m, const void* idx_f, const void* packed_m,
+                                const void* packed_f, long long cells_m, long long cells_f,
+                                const void* w_bf16, const void* w_f32, const void* g, void* dp,
+                                void* dfrac_m, void* dfrac_f, long long n_points,
+                                void* stream) {
     if (n_points <= 0) return 0;
+    if (cells_m <= 0 || cells_f <= 0 || cells_m > 0x7fffffffLL || cells_f > 0x7fffffffLL)
+        return int(cudaErrorInvalidValue);
     int dev = 0, n_sm = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return int(err);
@@ -404,8 +428,10 @@ extern "C" int fused_decode_bwd(const void* p, const void* frac_m, const void* f
     const int grid = n_tiles < n_sm ? int(n_tiles) : n_sm;
     fused_decode_bwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(p), static_cast<const float*>(frac_m),
-        static_cast<const float*>(frac_f), static_cast<const uint32_t*>(rows_m),
-        static_cast<const uint32_t*>(rows_f), static_cast<const uint4*>(w_bf16),
+        static_cast<const float*>(frac_f), static_cast<const int*>(idx_m),
+        static_cast<const int*>(idx_f), static_cast<const uint32_t*>(packed_m),
+        static_cast<const uint32_t*>(packed_f), uint32_t(cells_m), uint32_t(cells_f),
+        static_cast<const uint4*>(w_bf16),
         static_cast<const uint4*>(w_f32), static_cast<const float4*>(g),
         static_cast<float*>(dp), static_cast<float*>(dfrac_m), static_cast<float*>(dfrac_f),
         n_points, n_tiles);

@@ -30,7 +30,7 @@ import torch
 from evennicer_slam_tpu_torch.core.bounds import normalize_3d_coordinate
 from evennicer_slam_tpu_torch.ops.grid_sample import (
     pack_corner_grid,
-    packed_rows_and_frac,
+    packed_index_and_frac,
     sample_grid_trilinear,
     sample_packed_trilinear,
 )
@@ -382,10 +382,12 @@ def nice_forward_packed(
     (middle; fine+color) instead of 24 corner gathers. Gradients flow to the
     query points (pose tracking); the packed grids are data, not parameters.
 
-    For the standard decoder trio (``fused_decode.supports``) the corner
-    reduction and all three MLPs run as the fused decode
-    (ops/fused_decode.py): one CUDA kernel forward and one backward for
-    tensors on the card, the plain PyTorch version for tensors on the CPU.
+    For the standard decoder trio (``fused_decode.supports``) the row gather,
+    the corner reduction and all three MLPs run as the fused decode
+    (ops/fused_decode.py) from each point's cell index: one CUDA kernel
+    forward and one backward for tensors on the card, which read the rows
+    from the grids themselves, the plain PyTorch version for tensors on the
+    CPU.
     Any other trio runs the same arithmetic as separate PyTorch ops. Where
     ``grids`` carries the trio's packed weights
     (:func:`pack_decoders_for_tracking`) the kernels take them from there.
@@ -409,12 +411,12 @@ def _nice_forward_packed(decoders, grids, p, bound):
     # do not cover (a non-Fourier embedding, another width) takes the plain
     # ops below on every device, as the JAX package's does
     if fused_decode.supports(decoders):
-        rows_m, frac_m = packed_rows_and_frac(grids["middle_packed"], p_nor)
-        rows_f, frac_f = packed_rows_and_frac(grids["fc_packed"], p_nor)
-        c_dim = grids["middle_packed"].shape[-1] // 8
+        packed_m, packed_f = grids["middle_packed"], grids["fc_packed"]
+        idx_m, frac_m = packed_index_and_frac(packed_m, p_nor)
+        idx_f, frac_f = packed_index_and_frac(packed_f, p_nor)
         return fused_decode.fused_decode_packed(
-            decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim=c_dim,
-            weights=grids.get(TRIO_WEIGHTS),
+            decoders, p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f,
+            c_dim=packed_m.shape[-1] // 8, weights=grids.get(TRIO_WEIGHTS),
         )
     middle_feat = sample_packed_trilinear(grids["middle_packed"], p_nor)
     fc_feat = sample_packed_trilinear(grids["fc_packed"], p_nor)

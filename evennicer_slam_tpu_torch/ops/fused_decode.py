@@ -4,22 +4,27 @@ of ``evennicer_slam_tpu/ops/fused_decode.py``).
 
 The forward kernel (``csrc/fused_decode.cu``) replaces the TPU Pallas kernel
 ``_fwd_kernel`` of the JAX package. For N query points it takes the points,
-the two trilinear fraction triples and the two gathered packed-corner rows
-(ops/grid_sample.py) and returns raw ``[N, 4]`` = (colour rgb, middle + fine
-occupancy): corner reduction, three Fourier embeddings and three five-block
-MLPs with no activation written to device memory.
+the two trilinear fraction triples, each point's two cell indices and the two
+read-only packed-corner grids (ops/grid_sample.py::packed_index_and_frac) and
+returns raw ``[N, 4]`` = (colour rgb, middle + fine occupancy): row gather
+from the grids, corner reduction, three Fourier embeddings and three
+five-block MLPs with no row and no activation written to device memory. The
+JAX package gathers the rows into ``[N, 8C]`` arrays first; here no such
+array is made, forward or backward (1,536 B a point, 1.35 GB for the 881,280
+points of one event-loss decode).
 
 The backward kernel (``csrc/fused_decode_bwd.cu``) replaces ``_bwd_kernel``:
-it recomputes the forward per point and pulls a cotangent ``g [N, 4]`` back
-to the points and the two fraction triples. Rows and decoder weights are
-frozen. Its plain version is autograd of the forward's plain version
-(:func:`fused_decode_bwd_plain`); its source says what bounds it.
+it recomputes the forward per point, reading the rows again from the grids,
+and pulls a cotangent ``g [N, 4]`` back to the points and the two fraction
+triples. Grids and decoder weights are frozen. Its plain version is autograd
+of the forward's plain version (:func:`fused_decode_bwd_plain`); its source
+says what bounds it.
 
-What bounds it on an H100, per point: 1,536 B of rows + 36 B of point and
-fractions in, 16 B out, against 101,632 FLOP of non-zero MLP work (50,816
-multiply-adds with bf16 operands) plus 279 sines. At N = 881,280 that is
-1.40 GB, 0.42 ms at 3.35 TB/s, against 0.09 ms at the bf16 tensor-core peak:
-the floor is the row traffic. Both kernels run every MLP product on the
+What bounds it on an H100, per point: 44 B of point, fractions and indices
+in, 16 B out, and the rows of the cells the points fall in (1,536 B a cell,
+read from the grids; neighbouring samples of a ray share cells, so most come
+from L2), against 101,632 FLOP of non-zero MLP work (50,816 multiply-adds
+with bf16 operands) plus 279 sines. Both kernels run every MLP product on the
 tensor cores (``mma.sync`` m16n8k16, bf16 operands, f32 accumulators) against
 the trio's bf16 weights resident in shared memory, one persistent block per
 SM whose warps each walk their own 16-point tiles; what is left on the CUDA
@@ -45,6 +50,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 C_DIM = 32
 HIDDEN = 32
@@ -233,8 +240,8 @@ def declare_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from
     ``csrc/fused_decode.cu`` (pointers and the stream as ``c_void_p``)."""
     vp = ctypes.c_void_p
-    lib.fused_decode_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                     ctypes.c_longlong, vp]
+    i64 = ctypes.c_longlong
+    lib.fused_decode_fwd.argtypes = [vp] * 7 + [i64, i64] + [vp] * 3 + [i64, vp]
     lib.fused_decode_fwd.restype = ctypes.c_int
     for fn in (lib.fused_decode_w_bf16_elems, lib.fused_decode_w_f32_elems,
                lib.fused_decode_warps, lib.fused_decode_warp_points,
@@ -256,7 +263,8 @@ def declare_bwd_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of a library built from
     ``csrc/fused_decode_bwd.cu``."""
     vp = ctypes.c_void_p
-    lib.fused_decode_bwd.argtypes = [vp] * 11 + [ctypes.c_longlong, vp]
+    i64 = ctypes.c_longlong
+    lib.fused_decode_bwd.argtypes = [vp] * 7 + [i64, i64] + [vp] * 6 + [i64, vp]
     lib.fused_decode_bwd.restype = ctypes.c_int
     for fn in (lib.fused_decode_bwd_w_bf16_elems, lib.fused_decode_bwd_w_f32_elems,
                lib.fused_decode_bwd_warps, lib.fused_decode_bwd_warp_points,
@@ -287,23 +295,52 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be 16-byte aligned")
 
 
-def launch_fused_decode_fwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32,
-                            lib: ctypes.CDLL = None) -> torch.Tensor:
-    """Check the arguments, launch the kernel on the current stream, count
-    the launch. Returns raw [N, 4] f32. No synchronisation. ``lib`` is the
-    library to launch from (default: :func:`kernel_library`; a tuning script
-    passes a variant built with other flags)."""
+def _check_grid(name: str, grid: torch.Tensor, row: int, device) -> int:
+    """A packed-corner grid ``[Z, Y, X, row]`` bf16; returns its cells."""
+    if grid.dim() != 4:
+        raise ValueError(f"{name}: shape {tuple(grid.shape)}, expected [Z, Y, X, {row}]")
+    _check(name, grid, torch.bfloat16, (*grid.shape[:3], row), device)
+    cells = grid.shape[0] * grid.shape[1] * grid.shape[2]
+    if not 0 < cells < 2**31:
+        raise ValueError(f"{name}: {cells} cells, expected 1 .. 2**31 - 1")
+    return cells
+
+
+def _check_points(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f):
+    """The arguments the two kernels share; returns (N, cells_m, cells_f)."""
     dev = p.device
     if dev.type != "cuda":
         raise ValueError(f"the fused decode kernel needs CUDA tensors, got {dev}")
     n = p.shape[0]
-    if lib is None:
-        lib = kernel_library()
     _check("p", p, torch.float32, (n, 3), dev)
     _check("frac_m", frac_m, torch.float32, (n, 3), dev)
     _check("frac_f", frac_f, torch.float32, (n, 3), dev)
-    _check("rows_m", rows_m, torch.bfloat16, (n, 8 * C_DIM), dev)
-    _check("rows_f", rows_f, torch.bfloat16, (n, 16 * C_DIM), dev)
+    _check("idx_m", idx_m, torch.int32, (n,), dev)
+    _check("idx_f", idx_f, torch.int32, (n,), dev)
+    cells_m = _check_grid("packed_m", packed_m, 8 * C_DIM, dev)
+    cells_f = _check_grid("packed_f", packed_f, 16 * C_DIM, dev)
+    return n, cells_m, cells_f
+
+
+def _count_gathered(n: int) -> None:
+    """A kernel read the rows of ``n`` points from the packed grids."""
+    fused_decode_packed.gathered_points += n
+    TRACER.add("slam.decode.gathered", n)
+
+
+def launch_fused_decode_fwd(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f, w16, f32,
+                            lib: ctypes.CDLL = None) -> torch.Tensor:
+    """Check the arguments, launch the kernel on the current stream, count
+    the launch and the points gathered. ``idx_*`` [N] int32 are the points'
+    cells in the packed grids ``packed_m`` [Z, Y, X, 256] and ``packed_f``
+    [Z', Y', X', 512] bf16 (:func:`~evennicer_slam_tpu_torch.ops.grid_sample.
+    packed_index_and_frac`). Returns raw [N, 4] f32. No synchronisation.
+    ``lib`` is the library to launch from (default: :func:`kernel_library`; a
+    tuning script passes a variant built with other flags)."""
+    n, cells_m, cells_f = _check_points(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f)
+    dev = p.device
+    if lib is None:
+        lib = kernel_library()
     _check("w16", w16, torch.bfloat16, (lib.fused_decode_w_bf16_elems(),), dev)
     _check("f32", f32, torch.float32, (lib.fused_decode_w_f32_elems(),), dev)
     out = torch.empty((n, 4), dtype=torch.float32, device=dev)
@@ -312,33 +349,28 @@ def launch_fused_decode_fwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_decode_fwd(
-            p.data_ptr(), frac_m.data_ptr(), frac_f.data_ptr(),
-            rows_m.data_ptr(), rows_f.data_ptr(), w16.data_ptr(),
-            f32.data_ptr(), out.data_ptr(), n, stream,
+            p.data_ptr(), frac_m.data_ptr(), frac_f.data_ptr(), idx_m.data_ptr(),
+            idx_f.data_ptr(), packed_m.data_ptr(), packed_f.data_ptr(), cells_m, cells_f,
+            w16.data_ptr(), f32.data_ptr(), out.data_ptr(), n, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_decode_fwd: CUDA error {err} at launch")
     fused_decode_packed.launches += 1
+    _count_gathered(n)
     return out
 
 
-def launch_fused_decode_bwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32, g,
+def launch_fused_decode_bwd(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f, w16, f32, g,
                             lib: ctypes.CDLL = None
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Check the arguments, launch the backward kernel on the current stream,
-    count the launch. ``g`` is the cotangent of raw, [N, 4] f32. Returns
-    ``(dp, dfrac_m, dfrac_f)``, each [N, 3] f32. No synchronisation."""
+    count the launch and the points gathered. The arguments are the
+    forward's; ``g`` is the cotangent of raw, [N, 4] f32. Returns ``(dp,
+    dfrac_m, dfrac_f)``, each [N, 3] f32. No synchronisation."""
+    n, cells_m, cells_f = _check_points(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f)
     dev = p.device
-    if dev.type != "cuda":
-        raise ValueError(f"the fused decode kernel needs CUDA tensors, got {dev}")
-    n = p.shape[0]
     if lib is None:
         lib = bwd_kernel_library()
-    _check("p", p, torch.float32, (n, 3), dev)
-    _check("frac_m", frac_m, torch.float32, (n, 3), dev)
-    _check("frac_f", frac_f, torch.float32, (n, 3), dev)
-    _check("rows_m", rows_m, torch.bfloat16, (n, 8 * C_DIM), dev)
-    _check("rows_f", rows_f, torch.bfloat16, (n, 16 * C_DIM), dev)
     _check("w16", w16, torch.bfloat16, (lib.fused_decode_bwd_w_bf16_elems(),), dev)
     _check("f32", f32, torch.float32, (lib.fused_decode_bwd_w_f32_elems(),), dev)
     _check("g", g, torch.float32, (n, 4), dev)
@@ -349,38 +381,48 @@ def launch_fused_decode_bwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32, g,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_decode_bwd(
-            p.data_ptr(), frac_m.data_ptr(), frac_f.data_ptr(),
-            rows_m.data_ptr(), rows_f.data_ptr(), w16.data_ptr(),
-            f32.data_ptr(), g.data_ptr(), dp.data_ptr(), dfrac_m.data_ptr(),
+            p.data_ptr(), frac_m.data_ptr(), frac_f.data_ptr(), idx_m.data_ptr(),
+            idx_f.data_ptr(), packed_m.data_ptr(), packed_f.data_ptr(), cells_m, cells_f,
+            w16.data_ptr(), f32.data_ptr(), g.data_ptr(), dp.data_ptr(), dfrac_m.data_ptr(),
             dfrac_f.data_ptr(), n, stream,
         )
     if err != 0:
         raise RuntimeError(f"fused_decode_bwd: CUDA error {err} at launch")
     fused_decode_packed.bwd_launches += 1
+    _count_gathered(n)
     return dp, dfrac_m, dfrac_f
 
 
 class _FusedDecode(torch.autograd.Function):
-    """Forward and backward are one kernel launch each; rows and the packed
-    weights are data (no gradient)."""
+    """Forward and backward are one kernel launch each. The backward keeps
+    the points, fractions and cell indices (40 B a point) and references to
+    the packed grids; the grids and the packed weights are data (no
+    gradient)."""
 
     @staticmethod
-    def forward(ctx, p, frac_m, frac_f, rows_m, rows_f, w16, f32):
-        ctx.save_for_backward(p, frac_m, frac_f, rows_m, rows_f, w16, f32)
-        return launch_fused_decode_fwd(p, frac_m, frac_f, rows_m, rows_f, w16, f32)
+    def forward(ctx, p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f, w16, f32):
+        ctx.save_for_backward(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f, w16, f32)
+        return launch_fused_decode_fwd(p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f,
+                                       w16, f32)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_out):
         need = ctx.needs_input_grad[:3]
         if not any(need):
-            return (None,) * 7
+            return (None,) * 9
         # the cotangent may arrive expanded or strided
         g = grad_out.contiguous()
         if g.data_ptr() % 16:
             g = g.clone()
         grads = launch_fused_decode_bwd(*ctx.saved_tensors, g)
-        return (*(d if w else None for d, w in zip(grads, need)), None, None, None, None)
+        return (*(d if w else None for d, w in zip(grads, need)),) + (None,) * 6
+
+
+def gather_rows(packed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """The packed-corner rows of the cells ``idx`` [N], [N, 8C] in the
+    grid's dtype, detached: what the kernels read in place."""
+    return packed.detach().reshape(-1, packed.shape[-1])[idx.long()]
 
 
 def fused_decode_packed(
@@ -388,25 +430,33 @@ def fused_decode_packed(
     p: torch.Tensor,
     frac_m: torch.Tensor,
     frac_f: torch.Tensor,
-    rows_m: torch.Tensor,
-    rows_f: torch.Tensor,
+    idx_m: torch.Tensor,
+    idx_f: torch.Tensor,
+    packed_m: torch.Tensor,
+    packed_f: torch.Tensor,
     c_dim: int = C_DIM,
     weights: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Fused decode of N points. p/frac [N, 3] f32; rows [N, 8c] bf16.
-    Returns raw [N, 4], differentiable wrt p and the fractions; rows and
-    decoder weights are frozen by construction.
+    """Fused decode of N points. p/frac [N, 3] f32; idx [N] int32, each
+    point's cell in the packed grids ``packed_m`` [Z, Y, X, 8c] and
+    ``packed_f`` [Z', Y', X', 16c] bf16 (``packed_index_and_frac``). Returns
+    raw [N, 4], differentiable wrt p and the fractions; grids and decoder
+    weights are frozen by construction.
 
-    Tensors on the CPU go through :func:`fused_decode_packed_plain` (and
-    autograd). Tensors on a CUDA device go through the kernels, forward and
-    backward, or the call raises. ``weights`` are the trio's two packed
-    buffers (:func:`pack_trio_weights`) where the caller has packed them
-    already, as the tracker does once per frame; without them they are packed
-    here. ``fused_decode_packed.launches`` counts launches of the forward
-    kernel, ``fused_decode_packed.bwd_launches`` of the backward kernel."""
+    Tensors on the CPU gather the rows (:func:`gather_rows`) and go through
+    :func:`fused_decode_packed_plain` (and autograd). Tensors on a CUDA device
+    go through the kernels, forward and backward, which read each point's
+    rows from the grids themselves, or the call raises. ``weights`` are the
+    trio's two packed buffers (:func:`pack_trio_weights`) where the caller has
+    packed them already, as the tracker does once per frame; without them they
+    are packed here. ``fused_decode_packed.launches`` counts launches of the
+    forward kernel, ``fused_decode_packed.bwd_launches`` of the backward
+    kernel, ``fused_decode_packed.gathered_points`` the points whose rows
+    either kernel read (also the tracer's counter ``slam.decode.gathered``)."""
     if p.device.type == "cpu":
         return fused_decode_packed_plain(
-            decoders, p, frac_m, frac_f, rows_m, rows_f, c_dim)
+            decoders, p, frac_m, frac_f, gather_rows(packed_m, idx_m),
+            gather_rows(packed_f, idx_f), c_dim)
     if c_dim != C_DIM or not supports(decoders):
         raise ValueError(
             "the fused decode kernel takes the standard NICE trio only "
@@ -414,9 +464,10 @@ def fused_decode_packed(
         )
     w16, f32 = weights if weights is not None else pack_trio_weights(decoders)
     return _FusedDecode.apply(
-        p, frac_m, frac_f, rows_m.detach(), rows_f.detach(), w16, f32,
+        p, frac_m, frac_f, idx_m, idx_f, packed_m.detach(), packed_f.detach(), w16, f32,
     )
 
 
 fused_decode_packed.launches = 0
 fused_decode_packed.bwd_launches = 0
+fused_decode_packed.gathered_points = 0

@@ -110,7 +110,9 @@ def packed_rows_and_frac(packed: torch.Tensor, p_nor: torch.Tensor):
     order). ``frac`` carries the coordinate gradient (zero where the
     continuous coordinate is clamped at the border, matching
     ``F.grid_sample(padding_mode='border')``); indices and rows are detached
-    data. Feeds the fused decode (ops/fused_decode.py)."""
+    data. Feeds the fused decode's plain version (ops/fused_decode.py); the
+    tracking decode passes :func:`packed_index_and_frac`'s cell indices to
+    the kernels instead."""
     Z, Y, X, C8 = packed.shape
     ux, uy, uz = _unnormalize(p_nor, Z, Y, X)
     x0 = torch.floor(ux.detach())
@@ -120,6 +122,28 @@ def packed_rows_and_frac(packed: torch.Tensor, p_nor: torch.Tensor):
     idx = (z0.to(torch.long) * Y + y0.to(torch.long)) * X + x0.to(torch.long)
     rows = packed.detach().reshape(-1, C8)[idx]
     return rows, frac
+
+
+def packed_index_and_frac(packed: torch.Tensor, p_nor: torch.Tensor):
+    """The cell index of each of N points in a packed-corner grid, and its
+    trilinear fractions: :func:`packed_rows_and_frac` without the gather.
+
+    Returns (idx [N] int32, the flat cell index into ``packed.reshape(-1,
+    8C)``; frac [N, 3] f32, (x, y, z) order, with the same floor, border clamp
+    and coordinate gradient). ``packed.reshape(-1, 8C)[idx]`` is
+    :func:`packed_rows_and_frac`'s rows. The fused decode kernels read each
+    point's row from the grid through ``idx`` (ops/fused_decode.py)."""
+    Z, Y, X, _ = packed.shape
+    if Z * Y * X >= 2**31:
+        raise ValueError(f"a grid of {Z}x{Y}x{X} cells has no int32 cell index")
+    ux, uy, uz = _unnormalize(p_nor, Z, Y, X)
+    x0 = torch.floor(ux.detach())
+    y0 = torch.floor(uy.detach())
+    z0 = torch.floor(uz.detach())
+    frac = torch.stack([ux - x0, uy - y0, uz - z0], dim=-1)
+    i32 = torch.int32
+    idx = (z0.to(i32) * Y + y0.to(i32)) * X + x0.to(i32)
+    return idx, frac
 
 
 def sample_packed_trilinear(packed: torch.Tensor, p_nor: torch.Tensor) -> torch.Tensor:

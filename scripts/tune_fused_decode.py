@@ -69,7 +69,8 @@ def main():
     w16, f32 = fused_decode.pack_trio_weights(decoders)
     if opts.backward:
         g = torch.randn(cs.N_MAIN, 4, device=dev, generator=torch.Generator(dev).manual_seed(0))
-        ref = fused_decode.fused_decode_bwd_plain(decoders, *args, g, chunk=cs.BWD_PLAIN_CHUNK)
+        ref = fused_decode.fused_decode_bwd_plain(decoders, *cs.rows_of(args), g,
+                                                  chunk=cs.BWD_PLAIN_CHUNK)
         for rnd in (1, 2):
             for t in (opts.shapes if rnd == 1 else opts.shapes[::-1]):
                 run = lambda: fused_decode.launch_fused_decode_bwd(
@@ -81,7 +82,7 @@ def main():
                       f"max rel norm err {rel:.2e}  {' | '.join(logs[t])}", flush=True)
         return
     with torch.no_grad():
-        ref = fused_decode.fused_decode_packed_plain(decoders, *args)
+        ref = fused_decode.fused_decode_packed_plain(decoders, *cs.rows_of(args))
         for rnd in (1, 2):
             order = opts.shapes if rnd == 1 else opts.shapes[::-1]
             for t in order:

@@ -246,12 +246,14 @@ def test_fused_decode_on_cpu_tensors_never_builds_a_kernel():
 
     before = dict(cuda_build.BUILD_LOG)
     dec = td.init_nice_decoders(torch.Generator().manual_seed(0), device="cpu")
+    idx = torch.zeros(5, dtype=torch.int32)
     out = fused_decode.fused_decode_packed(
-        dec, torch.zeros(5, 3), torch.rand(5, 3), torch.rand(5, 3),
-        torch.zeros(5, 256, dtype=torch.bfloat16), torch.zeros(5, 512, dtype=torch.bfloat16))
+        dec, torch.zeros(5, 3), torch.rand(5, 3), torch.rand(5, 3), idx, idx,
+        torch.zeros(1, 1, 1, 256, dtype=torch.bfloat16),
+        torch.zeros(1, 1, 1, 512, dtype=torch.bfloat16))
     assert tuple(out.shape) == (5, 4) and cuda_build.BUILD_LOG == before
     with pytest.raises(ValueError, match="CUDA"):
-        fused_decode.launch_fused_decode_fwd(*[torch.zeros(5, 3)] * 7)
+        fused_decode.launch_fused_decode_fwd(*[torch.zeros(5, 3)] * 9)
 
 
 def test_kernel_digest_covers_included_headers(tmp_path, monkeypatch):

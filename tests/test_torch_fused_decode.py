@@ -33,7 +33,7 @@ from evennicer_slam_tpu.ops import fused_decode as jf
 from evennicer_slam_tpu.ops.grid_sample import packed_rows_and_frac as j_rows_and_frac
 from evennicer_slam_tpu_torch.models import decoders as td
 from evennicer_slam_tpu_torch.ops import fused_decode as tf
-from evennicer_slam_tpu_torch.ops.grid_sample import packed_rows_and_frac
+from evennicer_slam_tpu_torch.ops.grid_sample import packed_index_and_frac, packed_rows_and_frac
 from evennicer_slam_tpu_torch.core.bounds import normalize_3d_coordinate
 
 from torch_parity import assert_close, cap_threads, t, to_torch
@@ -74,6 +74,15 @@ def _decode_args(s, p):
     return p, frac_m, frac_f, rows_m, rows_f
 
 
+def _index_args(s, p):
+    """The wrapper's arguments: cell indices and the packed grids."""
+    p_nor = normalize_3d_coordinate(p, t(BOUND))
+    packed_m, packed_f = s["pt"]["middle_packed"], s["pt"]["fc_packed"]
+    idx_m, frac_m = packed_index_and_frac(packed_m, p_nor)
+    idx_f, frac_f = packed_index_and_frac(packed_f, p_nor)
+    return p, frac_m, frac_f, idx_m, idx_f, packed_m, packed_f
+
+
 def test_plain_matches_pallas_kernel_in_interpret_mode(scene):
     want = _pallas_forward(scene)
     got = tf.fused_decode_packed_plain(scene["dt"], *_decode_args(scene, t(scene["p"])))
@@ -85,15 +94,17 @@ def test_packed_forward_goes_through_the_fused_decode(scene):
     """nice_forward_packed, nice_forward(fused=True) and the wrapper on CPU
     tensors all give the plain version's numbers, and no launch is counted."""
     before = tf.fused_decode_packed.launches
-    args = _decode_args(scene, t(scene["p"]))
-    plain = tf.fused_decode_packed_plain(scene["dt"], *args)
-    assert torch.equal(tf.fused_decode_packed(scene["dt"], *args), plain)
+    gathered = tf.fused_decode_packed.gathered_points
+    plain = tf.fused_decode_packed_plain(scene["dt"], *_decode_args(scene, t(scene["p"])))
+    assert torch.equal(tf.fused_decode_packed(scene["dt"], *_index_args(scene, t(scene["p"]))),
+                       plain)
     assert torch.equal(td.nice_forward_packed(scene["dt"], scene["pt"], t(scene["p"]), t(BOUND)),
                        plain)
     # unpacked grids are packed on the way in
     assert torch.equal(td.nice_forward(scene["dt"], scene["gt"], t(scene["p"]), t(BOUND),
                                        "color", fused=True), plain)
     assert tf.fused_decode_packed.launches == before
+    assert tf.fused_decode_packed.gathered_points == gathered
     assert_close(plain, _pallas_forward(scene), atol=5e-3, rtol=5e-3)
 
 
@@ -157,7 +168,7 @@ def test_bwd_plain_is_autograd_of_the_plain_forward(scene):
         assert tuple(a.shape) == (N, 3) and not a.requires_grad
         assert torch.equal(a, b) and torch.equal(a, c)
     # the wrapper on CPU tensors is the plain version, and autograd goes through it
-    raw = tf.fused_decode_packed(scene["dt"], *leaves, *args[3:])
+    raw = tf.fused_decode_packed(scene["dt"], *leaves, *_index_args(scene, t(scene["p"]))[3:])
     for a, b in zip(torch.autograd.grad(raw, leaves, g), want):
         assert torch.equal(a, b)
 
@@ -199,8 +210,9 @@ def test_the_backward_rounds_each_cotangent_through_bf16(scene):
 def test_backward_launch_refuses_cpu_tensors():
     z = torch.zeros(5, 3)
     with pytest.raises(ValueError, match="CUDA"):
-        tf.launch_fused_decode_bwd(z, z, z, z, z, z, z, torch.zeros(5, 4))
+        tf.launch_fused_decode_bwd(z, z, z, z, z, z, z, z, z, torch.zeros(5, 4))
     assert tf.fused_decode_packed.bwd_launches == 0
+    assert tf.fused_decode_packed.gathered_points == 0
 
 
 def test_rows_weights_and_middle_copy_carry_no_gradient(scene):
@@ -341,6 +353,72 @@ def test_summation_order_alone_flips_bf16_roundings():
     assert 0 < flips < 0.01 * fwd.numel() and flips_exact > 0, (flips, flips_exact)
 
 
+def _points(where):
+    """N points of one kind: inside the bound, exactly on its faces (some
+    coordinate at -1 or +1 after normalisation), or outside it (clamped)."""
+    rng = np.random.default_rng(11)
+    lo, hi = BOUND[:, 0], BOUND[:, 1]
+    if where == "interior":
+        u = rng.uniform(0.05, 0.95, (N, 3))
+    elif where == "border":
+        u = rng.uniform(0.0, 1.0, (N, 3))
+        axis = rng.integers(0, 3, N)
+        u[np.arange(N), axis] = rng.integers(0, 2, N)
+    else:
+        u = rng.uniform(-0.3, 1.3, (N, 3))
+        axis = rng.integers(0, 3, N)
+        u[np.arange(N), axis] = np.where(rng.random(N) < 0.5, -0.2, 1.2)
+    return (lo + u * (hi - lo)).astype(np.float32)
+
+
+@pytest.mark.parametrize("where", ["interior", "border", "clamped"])
+@pytest.mark.parametrize("grid", ["middle_packed", "fc_packed"])
+def test_index_and_frac_match_rows_and_frac(scene, grid, where):
+    """packed_index_and_frac is packed_rows_and_frac without the gather: the
+    same fractions and coordinate gradient, and its cells hold the rows."""
+    packed = scene["pt"][grid]
+    w = t(np.random.default_rng(12).standard_normal((N, 3)).astype(np.float32))
+    outs = []
+    for fn in (packed_index_and_frac, packed_rows_and_frac):
+        q = t(_points(where)).requires_grad_()
+        first, frac = fn(packed, normalize_3d_coordinate(q, t(BOUND)))
+        (frac * w).sum().backward()
+        outs.append((first, frac.detach(), q.grad))
+    (idx, frac_i, grad_i), (rows, frac_r, grad_r) = outs
+    assert idx.dtype == torch.int32 and tuple(idx.shape) == (N,) and idx.is_contiguous()
+    assert torch.equal(frac_i, frac_r) and torch.equal(grad_i, grad_r)
+    assert torch.equal(packed.reshape(-1, packed.shape[-1])[idx.long()], rows)
+    assert torch.equal(tf.gather_rows(packed, idx), rows)
+    cells = packed.shape[0] * packed.shape[1] * packed.shape[2]
+    assert int(idx.min()) >= 0 and int(idx.max()) < cells
+    if where != "interior":  # the border cells are reached, and clamped to
+        assert bool((frac_i == 0).any() | (frac_i == 1).any())
+    if where == "clamped":
+        assert not bool(grad_i.abs().sum(dim=1).eq(0).all())
+        assert bool(grad_i.eq(0).any())  # a clamped coordinate passes no gradient
+
+
+@pytest.mark.parametrize("where", ["interior", "border", "clamped"])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_index_decode_matches_rows_decode(scene, direction, where):
+    """The wrapper on CPU tensors, from cell indices, against the plain
+    version from gathered rows: the same output, and through autograd the
+    same gradient at the points, bit for bit."""
+    g = t(_cotangent())
+    res = []
+    for make, decode in ((_index_args, tf.fused_decode_packed),
+                         (_decode_args, tf.fused_decode_packed_plain)):
+        q = t(_points(where)).requires_grad_()
+        raw = decode(scene["dt"], *make(scene, q))
+        if direction == "forward":
+            res.append(raw.detach())
+        else:
+            (grad,) = torch.autograd.grad(raw, q, g)
+            res.append(grad)
+    assert torch.equal(res[0], res[1])
+    assert bool(res[0].abs().max() > 1e-3)
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card(scene):
     """The CUDA kernels, forward and backward, against their plain versions on
@@ -352,12 +430,15 @@ def test_kernel_matches_plain_on_the_card(scene):
     dt = to_torch(scene["dj"])
     dt = {k: {kk: ([x.to(dev) for x in vv] if isinstance(vv, list) else vv.to(dev))
               for kk, vv in m.items()} for k, m in dt.items()}
-    args = [a.to(dev) for a in _decode_args(scene, t(scene["p"]))]
+    args = [a.to(dev) for a in _index_args(scene, t(scene["p"]))]
+    rows = [tf.gather_rows(g, i) for g, i in zip(args[5:], args[3:5])]
     before = tf.fused_decode_packed.launches
+    gathered = tf.fused_decode_packed.gathered_points
     out = tf.fused_decode_packed(dt, *args)
     torch.cuda.synchronize()
     assert tf.fused_decode_packed.launches == before + 1
-    ref = tf.fused_decode_packed_plain(dt, *args)
+    assert tf.fused_decode_packed.gathered_points == gathered + N
+    ref = tf.fused_decode_packed_plain(dt, *args[:3], *rows)
     assert_close(out, ref.cpu().numpy(), atol=5e-3, rtol=5e-3)
     # the backward kernel through autograd against autograd of the plain
     # version: |err| <= 5e-3 * (rms of the reference + |reference|)
@@ -367,6 +448,7 @@ def test_kernel_matches_plain_on_the_card(scene):
     got = torch.autograd.grad(tf.fused_decode_packed(dt, *leaves, *args[3:]), leaves, g)
     torch.cuda.synchronize()
     assert tf.fused_decode_packed.bwd_launches == before + 1
-    want = tf.fused_decode_bwd_plain(dt, *args, g)
+    assert tf.fused_decode_packed.gathered_points == gathered + 3 * N
+    want = tf.fused_decode_bwd_plain(dt, *args[:3], *rows, g)
     for a, b in zip(got, want):
         assert bool(((a - b).abs() <= 5e-3 * (b.pow(2).mean().sqrt() + b.abs())).all())
