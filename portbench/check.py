@@ -219,32 +219,68 @@ def scene_bound(cfg) -> np.ndarray:
     return bound.astype(np.float32)
 
 
+# the readers that give their frames events (``has_events``)
+EVENT_DATASETS = ("replica_event", "rpg_event", "rpg_event_dense")
+# the RPG readers: colour read as grey, events in [+, -, 0] order
+RPG_DATASETS = ("rpg", "rpg_event", "rpg_event_dense")
+
+
+def uses_events(cfg) -> bool:
+    """Whether the program runs its event branch: the reader has events and
+    the configuration an ``event`` section."""
+    return cfg["dataset"] in EVENT_DATASETS and bool(cfg.get("event"))
+
+
 class Frames:
-    """The scene's frames decoded from its files, as the Replica-event
-    layout defines them: colour / 255, depth / png_depth_scale x scale,
-    events [-, +] (frame k reads event file k - 1; frame 0 has none)."""
+    """The scene's frames decoded from its files, as the reader of the
+    configuration's ``dataset`` decodes them: colour / 255 (a grey file
+    repeated to three channels),
+    depth / png_depth_scale x scale; colour and events undistorted where
+    ``cam.distortion`` is given, depth never. Events, polarity [-, +]:
+    ``replica_event`` frame k reads event file k - 1 in [0, -, +] order;
+    ``rpg_event_dense`` step k reads event file k - 1 in [+, -, 0] order and
+    image k // density; ``replica`` has none, nor has frame 0."""
 
     def __init__(self, cfg, device):
         from portbench.reference.data.png import read_png
+        from portbench.reference.data.undistort import Undistorter
 
         self.read_png = read_png
         self.folder = cfg["data"]["input_folder"]
-        self.event_folder = cfg["data"].get("event_folder")
-        self.depth_scale = cfg["cam"]["png_depth_scale"]
+        dataset = cfg["dataset"]
+        self.event_folder = (cfg["data"].get("event_folder") if dataset in EVENT_DATASETS
+                             else None)
+        self.events = [1, 0] if dataset in RPG_DATASETS else slice(1, None)
+        self.density = cfg["data"]["density"] if dataset == "rpg_event_dense" else 1
+        cam = cfg["cam"]
+        self.undistort = None if cam.get("distortion") is None else Undistorter(
+            [[cam["fx"], 0.0, cam["cx"]], [0.0, cam["fy"], cam["cy"]], [0.0, 0.0, 1.0]],
+            cam["distortion"])
+        self.depth_scale = cam["png_depth_scale"]
         self.scale = cfg["scale"]
         self.device = device
         self._cache: Dict[int, tuple] = {}
 
+    def colour(self, path: str) -> np.ndarray:
+        img = self.read_png(path)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=-1)
+        if self.undistort is not None:
+            img = self.undistort(img)
+        return (img.astype(np.float64) / 255.0).astype(np.float32)
+
     def host(self, k: int):
         if k not in self._cache:
             res = os.path.join(self.folder, "results")
-            color = (self.read_png(os.path.join(res, f"frame{k:06d}.png")).astype(np.float64)
-                     / 255.0).astype(np.float32)
-            depth = self.read_png(os.path.join(res, f"depth{k:06d}.png")).astype(np.float32)
+            image = k // self.density
+            color = self.colour(os.path.join(res, f"frame{image:06d}.png"))
+            depth = self.read_png(os.path.join(res, f"depth{image:06d}.png")).astype(np.float32)
             depth = (depth / self.depth_scale) * self.scale
             if k > 0 and self.event_folder:
                 ev = self.read_png(os.path.join(self.event_folder, f"frame{k - 1:06d}.png"))
-                event = ev.astype(np.float32)[..., 1:]
+                if self.undistort is not None:
+                    ev = self.undistort(ev.astype(np.float64))
+                event = ev.astype(np.float32)[..., self.events]
             else:
                 event = np.zeros(depth.shape + (2,), np.float32)
             self._cache[k] = (color, depth.astype(np.float32), event)
@@ -276,7 +312,7 @@ class Reference:
         # precision here); elsewhere, and in mapping, in float32
         self.packed = (self.device.type == "cuda" and nice) if packed is None else packed
         self.track_settings = self.settings._replace(fused_decode=self.packed)
-        self.use_events = "event" in cfg and bool(cfg["event"])
+        self.use_events = uses_events(cfg)
         self.eventnet = (load_eventnet_npz(eventnet_path, device=self.device)
                          if self.use_events and eventnet_path else {})
         self.frames = Frames(cfg, self.device)
@@ -434,18 +470,26 @@ def _max_abs(a, b) -> float:
     return float((a.double().cpu() - b.double().cpu()).abs().max())
 
 
-def _scaled_gaps(pairs):
-    """|a - r| over the larger of |r| and the median |r|, worst of the pairs."""
+def _gaps(pairs) -> List[float]:
+    """|a - r| over the larger of |r| and the median |r|, each pair."""
     if not pairs:
-        return 0.0
+        return [0.0]
     med = float(np.median([abs(r) for _, r in pairs]))
-    return max(abs(a - r) / max(abs(r), med, 1e-30) for a, r in pairs)
+    return [abs(a - r) / max(abs(r), med, 1e-30) for a, r in pairs]
+
+
+def _scaled_gaps(pairs):
+    """:func:`_gaps`, worst of the pairs."""
+    return max(_gaps(pairs))
 
 
 def compare_tracks(prog: List[Dict], ref: List[Dict]) -> Dict[str, float]:
     """Worst over the checked frames, along the program's own pose
     trajectory: each iteration's loss terms (``track_event``,
-    ``track_rgbd``) and the norm of the pose gradient as Adam gets it, on
+    ``track_rgbd``; and the worst frame's median over its iterations,
+    ``track_event_frame``, ``track_rgbd_frame``, which a pixel that crosses
+    the RGB-D loss's outlier threshold on one side alone, in one iteration,
+    does not move) and the norm of the pose gradient as Adam gets it, on
     frames with events only and on frames with RGB-D
     (``grad_event_frames``, ``grad_rgbd_frames``), each against the larger
     of the reference's value and its median; the program's Adam step against
@@ -460,13 +504,16 @@ def compare_tracks(prog: List[Dict], ref: List[Dict]) -> Dict[str, float]:
     from portbench.reference.core.quaternion import pose_matrix_from_tensor
 
     terms: Dict[str, list] = {}
+    sizes: Dict[str, list] = {}
     grads: Dict[str, list] = {}
     step, pick, cos_gap = 0.0, 0.0, 0.0
     for p, r in zip(prog, ref):
         for k in ("rgbd", "event"):
             if k in r["losses"] and k in p["losses"]:
-                terms.setdefault(k, []).extend(
-                    zip(p["losses"][k].double().tolist(), r["losses"][k].double().tolist()))
+                pairs = list(zip(p["losses"][k].double().tolist(),
+                                 r["losses"][k].double().tolist()))
+                terms.setdefault(k, []).extend(pairs)
+                sizes.setdefault(k, []).append(len(pairs))
         steps = p.get("steps") or []
         kind = "rgbd_frames" if "rgbd" in r["losses"] else "event_frames"
         for (g, _, _), gr in zip(steps, r["grads"]):
@@ -493,6 +540,9 @@ def compare_tracks(prog: List[Dict], ref: List[Dict]) -> Dict[str, float]:
             best = float(ref_crit.min())
             pick = max(pick, (float(ref_crit[chosen]) - best) / max(abs(best), 1e-30))
     out = {f"track_{k}": _scaled_gaps(v) for k, v in terms.items()}
+    for k, v in terms.items():
+        frames = np.split(np.asarray(_gaps(v)), np.cumsum(sizes[k])[:-1])
+        out[f"track_{k}_frame"] = max(float(np.median(f)) for f in frames if f.size)
     out.update({f"grad_{k}": _scaled_gaps(v) for k, v in grads.items()})
     out["track_step"] = step
     out["track_pick"] = pick

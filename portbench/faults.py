@@ -2,7 +2,9 @@
 them: a step that returns its state unchanged (the tracker's Adam step,
 the mapping call), half of the batch left out with the sum taken over the
 rest twice (the mean over the rest), and an answer altered where it is
-produced (the tracked pose, the fine grid). One card has no exchange between chips
+produced (the tracked pose, the fine grid; ``frame_loss``: the loss record
+of every fifth tracked frame, one frame of a mapping period of five, one
+per cent high, the pose and its gradient left as they were). One card has no exchange between chips
 to leave out.
 
 Two more break the backward of the tracker's packed decode, which runs the
@@ -23,7 +25,7 @@ from typing import Dict
 
 import torch
 
-FAULTS = ("unchanged", "half_batch", "altered")
+FAULTS = ("unchanged", "half_batch", "altered", "frame_loss")
 DECODE_FAULTS = ("zero_grad", "flipped_grad")
 
 
@@ -104,6 +106,17 @@ def planted(name: str, modules: Dict):
 
         patch(tracker, "track_frame", track_altered)
         patch(mapper, "map_frame", map_altered)
+    elif name == "frame_loss":
+        track_frame, calls = tracker.track_frame, []
+
+        def loss_altered(*a, **k):
+            best_cam, best_c2w, losses, bias = track_frame(*a, **k)
+            if len(calls) % 5 == 0:
+                losses = {key: v * 1.01 for key, v in losses.items()}
+            calls.append(1)
+            return best_cam, best_c2w, losses, bias
+
+        patch(tracker, "track_frame", loss_altered)
     elif name in DECODE_FAULTS:
         decoders = modules["decoders"]
         packed = decoders.nice_forward_packed

@@ -84,9 +84,15 @@ def write_eventnet(path: str, seed: int, device) -> str:
     return path
 
 
-def run_config(config: Dict, traffic: Dict, frag: Dict, out_dir: str, seed: int) -> Dict:
+def mix_config(config: Dict, traffic: Dict) -> Dict:
+    """The configuration with the mix's overrides, before the scene's fragment."""
     cfg = copy.deepcopy(config["config"])
     _update(cfg, copy.deepcopy(traffic.get("cfg_overrides", {})))
+    return cfg
+
+
+def run_config(config: Dict, traffic: Dict, frag: Dict, out_dir: str, seed: int) -> Dict:
+    cfg = mix_config(config, traffic)
     _update(cfg, copy.deepcopy(frag))
     cfg["data"]["output"] = os.path.join(out_dir, "output")
     cfg["seed"] = seed
@@ -135,14 +141,15 @@ class Run:
         from evennicer_slam_tpu_torch.utils.runtime import setup_torch
 
         tr = self.traffic
-        frag = scene.write_scene(os.path.join(self.root, "build", "portbench"), tr["scene"],
+        frag = scene.write_scene(os.path.join(self.root, "build", "portbench"),
+                                 scene.recorded(tr["scene"], mix_config(self.config, tr)),
                                  self.device)
         # the run's own directory under TMPDIR (the system's where it is
         # unset), removed when the run ends
         self.out_dir = tempfile.mkdtemp(prefix=f"portbench-{self.cell['name']}-")
         cfg = run_config(self.config, tr, frag, self.out_dir, self.seed)
         self.eventnet_path = None
-        if "event" in cfg and cfg["event"]:
+        if check.uses_events(cfg):
             self.eventnet_path = write_eventnet(os.path.join(self.out_dir, "eventnet.npz"),
                                                 self.seed, self.device)
             cfg["event"]["pretrained_path"] = self.eventnet_path

@@ -2,7 +2,7 @@
 ``evennicer_slam_tpu_torch/data/synthetic.py``, rendered with torch on the
 card (the same arithmetic: room box and furniture primitives, wall and
 primitive textures, depth as z, events as brightness differences times the
-gain), and written in the Replica-event layout.
+gain), and written in the layout of the cell's dataset.
 
 The camera runs one exactly periodic loop of ``P`` frames. The loop's files
 are written once per checkout; the dataset the program reads is a directory
@@ -10,6 +10,29 @@ of links, frame ``k`` to loop frame ``k mod P``, so no window runs out of
 frames. The event file of loop frame ``j`` holds the brightness change from
 loop frame ``j - 1 (mod P)``, so the event that closes the loop is as
 periodic as the rest.
+
+A mix's ``scene`` may name the layout (``layout``, default
+``replica_event``); what the layout's camera records beyond the Replica
+camera (the lens, the depth PNGs' scale, event frames an image) is the
+configuration's, ``cam.distortion``, ``cam.png_depth_scale`` and
+``data.density`` (:func:`recorded`). A Replica configuration over a mix that
+names no layout gets the Replica-event scene of the first benchmark, the
+same key, files and fragment:
+
+- ``replica_event``: RGB colour and depth PNGs under ``results/``, one event
+  PNG an image in ``[0, -, +]`` order (frame ``k`` reads event file
+  ``k - 1``), ``traj.txt``;
+- ``replica``: the same files, read by the ``replica`` reader, without
+  events; it shares the ``replica_event`` scene's directory;
+- ``rpg_event_dense``: colour as one grey channel, the brightness the events
+  are taken from; ``density`` event PNGs an image in ``[+, -, 0]`` order,
+  each the brightness change between consecutive dense poses; dense step
+  ``k`` reads image ``k // density`` and event file ``k - 1``; ``traj.txt``
+  holds the image poses, ``traj_density{d}.txt`` the dense ones.
+
+With a lens, colour and events are rendered through it (each pixel's ray the
+inverse-distorted one) and depth at the same rays, as the sensor records
+it; the reader's undistortion gives back the pinhole view.
 """
 
 from __future__ import annotations
@@ -27,6 +50,9 @@ from portbench.reference.data.png import write_png
 
 PNG_DEPTH_SCALE = 6553.5
 SCENE_VERSION = 1
+LAYOUTS = ("replica_event", "replica", "rpg_event_dense")
+# cv2.undistortPoints' iteration, run past its default of 5 to its fixed point
+UNDISTORT_POINT_ITERS = 20
 _LIGHT = (0.40824829, 0.40824829, 0.81649658)
 _WALL_BASE = ((0.9, 0.3, 0.3), (0.3, 0.9, 0.3), (0.3, 0.3, 0.9),
               (0.9, 0.9, 0.3), (0.3, 0.9, 0.9), (0.9, 0.3, 0.9))
@@ -96,15 +122,21 @@ def _prim_color(prim, hit: torch.Tensor, normal: torch.Tensor) -> torch.Tensor:
 
 
 def render_view(c2w: np.ndarray, H: int, W: int, fx: float, fy: float, bound: np.ndarray,
-                prims, device) -> tuple:
+                prims, device, xy=None) -> tuple:
     """(colour [H, W, 3] float32 in [0, 1], depth [H, W] float32 metres) of
     the room seen from ``c2w``, principal point at the image centre; the
     precisions of ``data/synthetic.py::render_box_views`` (rays in float32,
-    primitive hits in float64)."""
-    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
-    j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
-                          torch.arange(W, dtype=torch.float32, device=device), indexing="ij")
-    dirs = torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)], -1)
+    primitive hits in float64). ``xy`` ([H, W, 2], x right, y down) gives
+    each pixel's normalised ray in place of the pinhole's (a lens)."""
+    if xy is None:
+        cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+        j, i = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                              torch.arange(W, dtype=torch.float32, device=device),
+                              indexing="ij")
+        dirs = torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)], -1)
+    else:
+        xy = torch.as_tensor(np.asarray(xy, np.float32), device=device)
+        dirs = torch.stack([xy[..., 0], -xy[..., 1], -torch.ones_like(xy[..., 0])], -1)
     rot = torch.as_tensor(np.asarray(c2w[:3, :3], np.float32), device=device)
     flat_d = (dirs @ rot.T).reshape(-1, 3)
     flat_o = torch.as_tensor(np.asarray(c2w[:3, 3], np.float32), device=device)[None].expand_as(
@@ -213,25 +245,49 @@ def loop_angles(n: int, amplitude: float) -> np.ndarray:
     return amplitude * np.sin(2.0 * np.pi * k / n)
 
 
-def quantised_frames(poses: np.ndarray, H, W, fx, fy, bound, gain, device, furnished=True):
-    """Yield (colour uint8 [H, W, 3], depth uint16 [H, W], event uint8
-    [H, W, 2] with polarity [-, +]) of each pose; the first pose's events are
-    the change from the LAST pose, which closes the loop."""
+def distorted_rays(H: int, W: int, fx: float, fy: float, dist) -> np.ndarray:
+    """[H, W, 2] float64: the normalised ray (x right, y down) that reaches
+    each pixel of a sensor behind the lens ``dist`` (k1 k2 p1 p2 [k3 [k4 k5
+    k6]]), principal point at the image centre: ``cv2.undistortPoints``'
+    fixed-point iteration, ``UNDISTORT_POINT_ITERS`` times."""
+    d = np.zeros(8)
+    d[:len(dist)] = np.asarray(dist, np.float64)
+    k1, k2, p1, p2, k3, k4, k5, k6 = d
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    j, i = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
+                       indexing="ij")
+    x0, y0 = (i - cx) / fx, (j - cy) / fy
+    x, y = x0, y0
+    for _ in range(UNDISTORT_POINT_ITERS):
+        r2 = x * x + y * y
+        icdist = (1 + ((k6 * r2 + k5) * r2 + k4) * r2) / (1 + ((k3 * r2 + k2) * r2 + k1) * r2)
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x, y = (x0 - dx) * icdist, (y0 - dy) * icdist
+    return np.stack([x, y], axis=-1)
+
+
+def quantised_frames(poses: np.ndarray, H, W, fx, fy, bound, gain, device, furnished=True,
+                     xy=None, grey=False, depth_scale=PNG_DEPTH_SCALE):
+    """Yield (colour uint8 [H, W, 3], or [H, W] brightness with ``grey``;
+    depth uint16 [H, W]; event uint8 [H, W, 2] with polarity [-, +]) of each
+    pose; the first pose's events are the change from the LAST pose, which
+    closes the loop. ``xy``: each pixel's ray (:func:`render_view`)."""
     prims = scene_primitives(bound) if furnished else []
 
     def intensity(c):
         return c.mean(dim=-1)
 
-    renders = [render_view(poses[-1], H, W, fx, fy, bound, prims, device)]
+    renders = [render_view(poses[-1], H, W, fx, fy, bound, prims, device, xy)]
     prev = intensity(renders[0][0])
     for k in range(len(poses)):
-        color, depth = render_view(poses[k], H, W, fx, fy, bound, prims, device)
+        color, depth = render_view(poses[k], H, W, fx, fy, bound, prims, device, xy)
         cur = intensity(color)
         diff = (cur - prev) * gain
         event = torch.stack([torch.clamp(-diff, 0, 255), torch.clamp(diff, 0, 255)], dim=-1)
         prev = cur
-        yield ((color * 255).to(torch.uint8).cpu().numpy(),
-               torch.clamp(depth * PNG_DEPTH_SCALE, 0, 65535).to(torch.int32).cpu().numpy()
+        yield (((cur if grey else color) * 255).to(torch.uint8).cpu().numpy(),
+               torch.clamp(depth * depth_scale, 0, 65535).to(torch.int32).cpu().numpy()
                .astype(np.uint16),
                event.to(torch.uint8).cpu().numpy())
 
@@ -244,8 +300,39 @@ def raw_traj(pose: np.ndarray) -> np.ndarray:
     return raw
 
 
+def layout(params: Dict) -> str:
+    name = params.get("layout", "replica_event")
+    if name not in LAYOUTS:
+        raise ValueError(f"scene layout {name!r}: one of {LAYOUTS}")
+    return name
+
+
+def file_params(params: Dict) -> Dict:
+    """The parameters that fix the scene's files: the ``replica`` layout
+    reads the files of ``replica_event``, so it is keyed without its name."""
+    return {k: v for k, v in params.items() if not (k == "layout" and v == "replica")}
+
+
+# what a scene records beyond the Replica camera, and the Replica camera's
+REPLICA_CAMERA = {"png_depth_scale": PNG_DEPTH_SCALE, "distortion": None, "density": 1}
+
+
+def recorded(params: Dict, cfg: Dict) -> Dict:
+    """The mix's scene with what the camera of the run's configuration
+    ``cfg`` records where it differs from the Replica camera: its lens, its
+    depth PNGs' scale and, in the dense layout, its event frames an image."""
+    if set(params) & set(REPLICA_CAMERA):
+        raise ValueError(f"a mix's scene names no {sorted(REPLICA_CAMERA)}: the "
+                         "configuration states them")
+    cam = cfg["cam"]
+    rec = {"png_depth_scale": cam.get("png_depth_scale", PNG_DEPTH_SCALE),
+           "distortion": cam.get("distortion"),
+           "density": (cfg["data"]["density"] if layout(params) == "rpg_event_dense" else 1)}
+    return dict(params, **{k: v for k, v in rec.items() if v != REPLICA_CAMERA[k]})
+
+
 def scene_key(params: Dict) -> str:
-    blob = json.dumps({"v": SCENE_VERSION, **params}, sort_keys=True)
+    blob = json.dumps({"v": SCENE_VERSION, **file_params(params)}, sort_keys=True)
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
@@ -253,7 +340,8 @@ def write_scene(root: str, params: Dict, device) -> Dict:
     """Write (or keep, when its stamp matches) the loop and the linked
     dataset under ``root``; return the config fragment that points the
     reader at it. ``params``: H, W, fx, fy, bound [[lo, hi]] x 3, margin,
-    loop_frames, frames, amplitude, event_gain."""
+    loop_frames, frames, amplitude, event_gain, ``layout``, and what the
+    camera records (:func:`recorded`)."""
     key = scene_key(params)
     out = os.path.join(root, f"scene_{key}")
     stamp = os.path.join(out, "stamp.json")
@@ -264,7 +352,7 @@ def write_scene(root: str, params: Dict, device) -> Dict:
         shutil.rmtree(tmp, ignore_errors=True)
         _write(tmp, params)
         with open(os.path.join(tmp, "stamp.json"), "w") as f:
-            json.dump(params, f, sort_keys=True)
+            json.dump(file_params(params), f, sort_keys=True)
         try:
             os.rename(tmp, out)
         except OSError:
@@ -280,25 +368,53 @@ def room_box(params: Dict) -> np.ndarray:
                                                                -params["margin"]])
 
 
+def density(params: Dict) -> int:
+    """Event frames an image: 1 but in the dense layout."""
+    return int(params.get("density", 1))
+
+
 def loop_poses(params: Dict) -> np.ndarray:
+    """The loop's poses, ``density`` of them an image: image ``j`` is seen
+    from pose ``j * density``."""
     box = room_box(params)
-    return trajectory(loop_angles(params["loop_frames"], params["amplitude"]), box.mean(axis=1))
+    return trajectory(loop_angles(params["loop_frames"] * density(params), params["amplitude"]),
+                      box.mean(axis=1))
+
+
+def loop_frames(params: Dict, device) -> "iter":
+    """:func:`quantised_frames` of the loop's poses through the scene's lens."""
+    H, W, fx, fy = params["H"], params["W"], params["fx"], params["fy"]
+    xy = distorted_rays(H, W, fx, fy, params["distortion"]) if "distortion" in params else None
+    return quantised_frames(loop_poses(params), H, W, fx, fy, room_box(params),
+                            params["event_gain"], device=device, xy=xy,
+                            grey=layout(params) == "rpg_event_dense",
+                            depth_scale=params.get("png_depth_scale", PNG_DEPTH_SCALE))
+
+
+def _write_traj(path: str, poses: np.ndarray) -> None:
+    lines = [" ".join(f"{v:.9f}" for v in raw_traj(pose).reshape(-1)) for pose in poses]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def _write(out: str, params: Dict) -> None:
-    box = room_box(params)
+    """The loop's files and ``frames`` images linked into it, ``density``
+    event files an image less the first image's: event file ``e`` holds the
+    change from dense pose ``e`` to ``e + 1``, loop pose ``(e + 1) mod P *
+    density`` (the reader gives dense step ``k`` event file ``k - 1``)."""
     poses = loop_poses(params)
-    P, N = params["loop_frames"], params["frames"]
+    P, N, d = params["loop_frames"], params["frames"], density(params)
+    dense = layout(params) == "rpg_event_dense"
     loop = os.path.join(out, "loop")
     os.makedirs(loop)
-    frames = quantised_frames(poses, params["H"], params["W"], params["fx"], params["fy"],
-                              box, params["event_gain"], device=_device())
-    for k, (color8, depth16, event8) in enumerate(frames):
-        write_png(os.path.join(loop, f"frame{k:06d}.png"), color8)
-        write_png(os.path.join(loop, f"depth{k:06d}.png"), depth16)
-        # RGB [0, -, +], as the Replica-event reader expects
-        write_png(os.path.join(loop, f"event{k:06d}.png"),
-                  np.concatenate([np.zeros_like(event8[..., :1]), event8], axis=-1))
+    for m, (color8, depth16, event8) in enumerate(loop_frames(params, _device())):
+        if m % d == 0:
+            write_png(os.path.join(loop, f"frame{m // d:06d}.png"), color8)
+            write_png(os.path.join(loop, f"depth{m // d:06d}.png"), depth16)
+        zero = np.zeros_like(event8[..., :1])
+        # RGB [+, -, 0] for the RPG event readers, [0, -, +] for Replica's
+        write_png(os.path.join(loop, f"event{m:06d}.png"), np.concatenate(
+            [event8[..., 1:], event8[..., :1], zero] if dense else [zero, event8], axis=-1))
     res = os.path.join(out, "data", "results")
     ev = os.path.join(out, "data", "events")
     os.makedirs(res)
@@ -307,12 +423,13 @@ def _write(out: str, params: Dict) -> None:
         j = k % P
         os.symlink(f"../../loop/frame{j:06d}.png", os.path.join(res, f"frame{k:06d}.png"))
         os.symlink(f"../../loop/depth{j:06d}.png", os.path.join(res, f"depth{k:06d}.png"))
-        if k > 0:
-            # the reader gives frame k the event file k - 1
-            os.symlink(f"../../loop/event{j:06d}.png", os.path.join(ev, f"frame{k - 1:06d}.png"))
-    lines = [" ".join(f"{v:.9f}" for v in raw_traj(poses[k % P]).reshape(-1)) for k in range(N)]
-    with open(os.path.join(out, "data", "traj.txt"), "w") as f:
-        f.write("\n".join(lines) + "\n")
+    for e in range(N * d - d):
+        os.symlink(f"../../loop/event{(e + 1) % (P * d):06d}.png",
+                   os.path.join(ev, f"frame{e:06d}.png"))
+    _write_traj(os.path.join(out, "data", "traj.txt"), poses[(np.arange(N) % P) * d])
+    if dense:
+        _write_traj(os.path.join(out, "data", f"traj_density{d}.txt"),
+                    poses[np.arange(N * d - d + 1) % (P * d)])
 
 
 def _device():
@@ -320,13 +437,23 @@ def _device():
 
 
 def scene_fragment(out: str, params: Dict) -> Dict:
+    """The configuration's keys that point the layout's reader at the scene
+    and state its camera."""
     H, W = params["H"], params["W"]
+    name = layout(params)
+    data = {"input_folder": os.path.join(out, "data")}
+    if name != "replica":
+        data["event_folder"] = os.path.join(out, "data", "events")
+    if name == "rpg_event_dense":
+        data["density"] = density(params)
+    cam = {"H": H, "W": W, "fx": params["fx"], "fy": params["fy"],
+           "cx": (W - 1) / 2.0, "cy": (H - 1) / 2.0,
+           "png_depth_scale": params.get("png_depth_scale", PNG_DEPTH_SCALE), "crop_edge": 0}
+    if "distortion" in params:
+        cam["distortion"] = [float(v) for v in params["distortion"]]
     return {
-        "dataset": "replica_event",
-        "data": {"input_folder": os.path.join(out, "data"),
-                 "event_folder": os.path.join(out, "data", "events")},
-        "cam": {"H": H, "W": W, "fx": params["fx"], "fy": params["fy"],
-                "cx": (W - 1) / 2.0, "cy": (H - 1) / 2.0,
-                "png_depth_scale": PNG_DEPTH_SCALE, "crop_edge": 0},
+        "dataset": name,
+        "data": data,
+        "cam": cam,
         "mapping": {"bound": params["bound"], "marching_cubes_bound": params["bound"]},
     }

@@ -22,7 +22,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["nice.event_k5", "imap.rgbd"])
+@pytest.mark.parametrize("cell", ["nice.event_k5", "imap.rgbd", "nice.rgbd_k5"])
 def test_control_fails_and_program_passes(cell, card, tmp_path, monkeypatch):
     monkeypatch.setenv("TMPDIR", str(tmp_path))
     w = cells.workload(cells.load_benchmark(), cell)
