@@ -9,6 +9,13 @@ in numpy, without OpenCV: images through :func:`read_image` (``data/png.py``,
 ``cam.distortion`` through ``data/undistort.py`` (the map computed once per
 reader), EXR depth through ``data/exr.py``.
 
+Spans (``utils/telemetry.py``): ``slam.reader.undistort`` around each lens
+undistortion of a colour or event image, carrying the frame's index and
+detached like the prefetch worker's ``slam.reader.decode``, inside which it
+runs; the counter ``slam.reader.image_reread`` counts the dense event
+reader's steps that decode again the colour and depth of an image an
+earlier step read (``index % density != 0``).
+
 Every reader yields a :class:`Frame` with host numpy arrays: colour RGB in
 [0, 1], depth scaled, the event image as counts with polarity order [-, +]
 (all zero for non-event datasets), the pose with the y/z camera axes flipped
@@ -30,6 +37,7 @@ from evennicer_slam_tpu_torch.data.jpeg import SOI, decode_jpeg
 from evennicer_slam_tpu_torch.data.png import SIGNATURE, decode_png, read_png
 from evennicer_slam_tpu_torch.data.synthetic import Frame
 from evennicer_slam_tpu_torch.data.undistort import Undistorter
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 
 def _png_grey(rgb: np.ndarray) -> np.ndarray:
@@ -167,13 +175,18 @@ class BaseDataset:
     def __len__(self):
         return self.n_img
 
-    def _read_color(self, path: str, grayscale: bool = False) -> np.ndarray:
+    def _undistorted(self, data: np.ndarray, index: int) -> np.ndarray:
+        """``data`` through the lens undistortion, if the camera has a lens."""
+        if self.undistort is None:
+            return data
+        with TRACER.span("slam.reader.undistort", frame=index, detached=True):
+            return self.undistort(data)
+
+    def _read_color(self, path: str, index: int, grayscale: bool = False) -> np.ndarray:
         data = read_image(path, grayscale)
         if grayscale:
             data = np.repeat(data[..., None], 3, axis=-1)
-        if self.undistort is not None:
-            data = self.undistort(data)
-        return data.astype(np.float64) / 255.0
+        return self._undistorted(data, index).astype(np.float64) / 255.0
 
     def _read_depth(self, path: str) -> np.ndarray:
         if path.endswith(".exr"):
@@ -182,12 +195,16 @@ class BaseDataset:
             depth = read_png(path)
         return depth.astype(np.float32) / self.png_depth_scale
 
-    def _read_event_image(self, path: str) -> np.ndarray:
+    def _read_event_image(self, path: str, index: int) -> np.ndarray:
         """An event PNG as float64 RGB, undistorted as the colour is."""
-        data = read_image(path).astype(np.float64)
-        if self.undistort is not None:
-            data = self.undistort(data)
-        return data
+        return self._undistorted(read_image(path).astype(np.float64), index)
+
+    def _read_event(self, index: int, like_shape) -> np.ndarray:
+        """Step ``index``'s event image (event file ``index - 1``); all zero
+        at step 0."""
+        if index >= 1:
+            return self._read_event_image(self.event_paths[index - 1], index).astype(np.float32)
+        return np.zeros(like_shape, np.float32)
 
     def _postprocess(self, color, depth, event=None):
         H, W = depth.shape
@@ -219,7 +236,7 @@ class BaseDataset:
         return pose.astype(np.float32)
 
     def __getitem__(self, index: int) -> Frame:
-        color = self._read_color(self.color_paths[index])
+        color = self._read_color(self.color_paths[index], index)
         depth = self._read_depth(self.depth_paths[index])
         color, depth, _ = self._postprocess(color, depth)
         event = np.zeros((*depth.shape, 2), np.float32)
@@ -266,13 +283,8 @@ class ReplicaEvent(Replica):
             raise ValueError(f"{self.event_folder}: {self.n_event} event frames for "
                              f"{self.n_img} images; expected one fewer")
 
-    def _read_event(self, index: int, like_shape) -> np.ndarray:
-        if index - 1 >= 0:
-            return self._read_event_image(self.event_paths[index - 1]).astype(np.float32)
-        return np.zeros(like_shape, np.float32)
-
     def __getitem__(self, index: int) -> Frame:
-        color = self._read_color(self.color_paths[index])
+        color = self._read_color(self.color_paths[index], index)
         depth = self._read_depth(self.depth_paths[index])
         event = self._read_event(index, color.shape)
         color, depth, event = self._postprocess(color, depth, event)
@@ -290,7 +302,7 @@ class RPG(BaseDataset):
         self.poses = _load_traj_txt(f"{self.input_folder}/traj.txt", self.n_img)
 
     def __getitem__(self, index: int) -> Frame:
-        color = self._read_color(self.color_paths[index], grayscale=True)
+        color = self._read_color(self.color_paths[index], index, grayscale=True)
         depth = self._read_depth(self.depth_paths[index])
         color, depth, _ = self._postprocess(color, depth)
         event = np.zeros((*depth.shape, 2), np.float32)
@@ -313,15 +325,10 @@ class RPGEvent(RPG):
             raise ValueError(f"{self.event_folder}: {self.n_event} event frames for "
                              f"{self.n_img} images; expected one fewer")
 
-    def _read_event(self, event_index: int, like_shape) -> np.ndarray:
-        if event_index >= 0:
-            return self._read_event_image(self.event_paths[event_index]).astype(np.float32)
-        return np.zeros(like_shape, np.float32)
-
     def __getitem__(self, index: int) -> Frame:
-        color = self._read_color(self.color_paths[index], grayscale=True)
+        color = self._read_color(self.color_paths[index], index, grayscale=True)
         depth = self._read_depth(self.depth_paths[index])
-        event = self._read_event(index - 1, color.shape)
+        event = self._read_event(index, color.shape)
         color, depth, event = self._postprocess(color, depth, event)
         return _event_frame(index, color, depth, event[:, :, [1, 0]], self._pose(index))
 
@@ -347,9 +354,11 @@ class RPGEventDense(RPGEvent):
         return self.n_event + 1
 
     def __getitem__(self, index: int) -> Frame:
-        color = self._read_color(self.color_paths[index // self.density], grayscale=True)
+        if index % self.density:
+            TRACER.add("slam.reader.image_reread")
+        color = self._read_color(self.color_paths[index // self.density], index, grayscale=True)
         depth = self._read_depth(self.depth_paths[index // self.density])
-        event = self._read_event(index - 1, color.shape)
+        event = self._read_event(index, color.shape)
         color, depth, event = self._postprocess(color, depth, event)
         return _event_frame(index, color, depth, event[:, :, [1, 0]], self._pose(index))
 

@@ -5,7 +5,8 @@ losses are bit for bit those of a traced run; the spans are on the clock of
 main, reader-worker and autograd threads; on a ``portbench`` run, each
 program span at a layer boundary occurs as often as the benchmark's wrapper
 span around the same call, and inside it; the Chrome export of
-``run.py --spans``."""
+``run.py --spans``; the lens undistortion's spans inside the reader's decode
+and the dense event reader's count of images decoded again."""
 
 import json
 import os
@@ -294,3 +295,92 @@ def test_run_py_spans_writes_a_chrome_trace_of_every_span(event_scene, tmp_path)
     assert len(merged["traceEvents"]) == len(events) + 1
     assert merged["traceEvents"][1]["ts"] == events[0]["ts"] + 5.0
     assert os.path.exists(tmp_path / "out" / "mesh" / "final_mesh.ply")
+
+
+# ---- the dense event reader through a lens ------------------------------------
+
+# the DAVIS346's lens of configs/rpg/rpg.yaml, four event frames an image
+RPG_LENS = [-0.08409333, 0.05335822, -0.00065521, -0.0001679, 0, 0, 0, 0]
+DENSITY = 4
+
+
+@pytest.fixture(scope="module")
+def dense_scene(tmp_path_factory):
+    """A small ``rpg_event_dense`` scene written by the benchmark's scene
+    writer through the lens: 5 images, 17 dense steps."""
+    from portbench import scene
+
+    params = {"H": 24, "W": 32, "fx": 20.0, "fy": 20.0, "layout": "rpg_event_dense",
+              "bound": [[-7.0, 9.4], [-6.5, 3.6], [-9.2, 9.5]], "margin": 0.02,
+              "loop_frames": 3, "frames": 5, "amplitude": 0.3, "event_gain": 20.0}
+    camera = {"cam": {"png_depth_scale": 1000.0, "distortion": RPG_LENS},
+              "data": {"density": DENSITY}}
+    root = str(tmp_path_factory.mktemp("dense"))
+    return scene.write_scene(root, scene.recorded(params, camera), torch.device("cpu"))
+
+
+def _dense_reader(frag, lens=True):
+    from evennicer_slam_tpu_torch.data.datasets import get_dataset
+
+    cfg = dict(frag, cam=dict(frag["cam"]), data=dict(frag["data"]), scale=1.0)
+    if not lens:
+        del cfg["cam"]["distortion"]
+    return get_dataset(cfg, None, 1.0)
+
+
+def _prefetched_spans(reader, n):
+    """The spans of ``n`` frames read in order through the prefetcher."""
+    from evennicer_slam_tpu_torch.data.prefetch import PrefetchingReader
+
+    pre = PrefetchingReader(reader, device="cpu")
+    TRACER.enable()
+    for idx in range(n):
+        with TRACER.step(idx):
+            pre.get_with_device(idx)
+    pre._join()
+    TRACER.disable()
+    return TRACER.spans()
+
+
+def test_undistort_spans_nest_in_the_workers_decode(dense_scene):
+    """One ``slam.reader.undistort`` a colour read and one an event read
+    (step 0 has no event file), on the worker's thread inside its
+    ``slam.reader.decode``, carrying the frame's index; step 0, read on the
+    caller's thread, hangs under ``slam.reader.get``."""
+    reader = _dense_reader(dense_scene)
+    n = 2 * DENSITY + 1
+    spans = _prefetched_spans(reader, n)
+    by_id = {s.id: s for s in spans}
+    decodes = [s for s in spans if s.name == "slam.reader.decode"]
+    # the last read decodes the next frame ahead
+    assert sorted(d.frame for d in decodes) == list(range(1, n + 1))
+    undistort = [s for s in spans if s.name == "slam.reader.undistort"]
+    for d in decodes:
+        inner = [u for u in undistort if u.parent == d.id]
+        assert len(inner) == 2, d
+        assert all(u.frame == d.frame and u.thread == d.thread for u in inner)
+        assert all(d.start <= u.start <= u.end <= d.end for u in inner)
+    (first,) = [u for u in undistort if by_id[u.parent].name != "slam.reader.decode"]
+    assert first.frame == 0 and by_id[first.parent].name == "slam.reader.get"
+    assert len(undistort) == 2 * len(decodes) + 1
+
+
+def test_a_reader_without_a_lens_records_no_undistort_span(dense_scene):
+    spans = _prefetched_spans(_dense_reader(dense_scene, lens=False), DENSITY + 1)
+    assert any(s.name == "slam.reader.decode" for s in spans)
+    assert not any(s.name == "slam.reader.undistort" for s in spans)
+
+
+def test_image_reread_counts_three_steps_of_four(dense_scene):
+    """A dense step whose index is not a multiple of the density decodes
+    again an image that an earlier step read; off, nothing is counted."""
+    reader = _dense_reader(dense_scene)
+    assert len(reader) == 4 * DENSITY + 1
+    for idx in range(4 * DENSITY):
+        reader[idx]
+    assert not TRACER.count
+    TRACER.enable()
+    for idx in range(4 * DENSITY):
+        reader[idx]
+    TRACER.disable()
+    assert TRACER.count["slam.reader.image_reread"] == 3 * 4
