@@ -2,11 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything, as a check of a checkout
-    python3 chip_smoke.py --quick    # build + kernel check only
+    python3 chip_smoke.py --quick    # build + kernel checks only
 
-Builds the port's two CUDA kernels (fused decode forward and backward) from
-``evennicer_slam_tpu_torch/csrc`` into ``build/``, side by side, holds each
-against its plain PyTorch version on the card, then drives the port's main
+Builds the port's CUDA kernels (fused decode forward and backward, the
+mapper's grid sample) from ``evennicer_slam_tpu_torch/csrc`` into ``build/``,
+side by side, holds each against its plain PyTorch version on the card (the
+grid sample at the mapping shapes, bit for bit, forward and both gradients),
+then drives the port's main
 paths at the full width of the shipped configuration
 (``configs/nice_slam.yaml``, Replica camera 680x1200, the bench scene's
 bound):
@@ -174,7 +176,7 @@ from evennicer_slam_tpu_torch.models import eventnet_train  # noqa: E402
 from evennicer_slam_tpu_torch.models.eventnet import init_eventnet, load_eventnet_npz  # noqa: E402
 from evennicer_slam_tpu_torch.models.eventnet_train import make_pair_batch  # noqa: E402
 from evennicer_slam_tpu_torch.models.grids import init_grids  # noqa: E402
-from evennicer_slam_tpu_torch.ops import cuda_build, fused_decode  # noqa: E402
+from evennicer_slam_tpu_torch.ops import cuda_build, fused_decode, grid_sample  # noqa: E402
 from evennicer_slam_tpu_torch.ops.grid_sample import packed_index_and_frac  # noqa: E402
 from evennicer_slam_tpu_torch.ops.resize import resize_bilinear, resize_nearest  # noqa: E402
 from evennicer_slam_tpu_torch.render.renderer import (  # noqa: E402
@@ -209,6 +211,7 @@ from evennicer_slam_tpu_torch.utils.optim import (  # noqa: E402
     tree_map,
 )
 from evennicer_slam_tpu_torch.utils.runtime import setup_torch  # noqa: E402
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER  # noqa: E402
 from evennicer_slam_tpu_torch.utils.visualizer import MARGIN as VIS_MARGIN  # noqa: E402
 
 SEED = 0
@@ -310,6 +313,13 @@ BWD_DESIGN = ("forward recompute and reverse products as mma.sync m16n8k16 bf16,
 
 def say(msg):
     print(msg, flush=True)
+
+
+def say_ptxas(log):
+    """The register, spill and warning lines of a library's ptxas output."""
+    for line in str(log["ptxas"]).splitlines():
+        if "registers" in line or "spill" in line or "warning" in line.lower():
+            say("    ptxas: " + line.strip())
 
 
 def nvidia_smi_line():
@@ -603,6 +613,146 @@ def check_bwd_kernel(decoders, packed, bound_t, n, dev, iters, plain_iters):
     return res
 
 
+# The mapper's trilinear grid sample (ops/grid_sample.py, csrc/grid_sample.cu)
+# at the mapping shapes: one iteration's 1,000 rays x 48 samples on
+# nice_replica's grids (room0's bound rounded to 0.32 m, [Z, Y, X] x 32), and
+# every point in one cell (the longest runs the grid gradient can meet). The
+# kernels repeat the plain version's operations in its order, so output and
+# both gradients are held to it bit for bit.
+GS_POINTS = 48_000
+GS_SHAPES = {"coarse": (7, 8, 11), "middle": (22, 28, 37), "fine": (44, 56, 74),
+             "one_cell": (22, 28, 37)}
+GS_C = 32
+GS_DESIGN = ("forward and coordinate backward a warp a point, lane = channel, corners read "
+             "in place; grid backward: stable sort of the 8N (vertex, corner) keys, the "
+             "pairs a vertex summed in the plain version's order: a warp for 32 short "
+             "vertices, and each vertex of more than 32 pairs by the 8-warp block whose "
+             "256-position tile holds its first pair, a warp a corner run; no atomics")
+
+
+def gs_points(case, gen, dev):
+    """A mapping batch (points in part of the bound, 5 % outside it; the
+    coarse grid sees them at half scale), or every point inside one cell."""
+    n = GS_POINTS
+    if case == "one_cell":
+        Z, Y, X = GS_SHAPES[case]
+        size = torch.tensor([X - 1, Y - 1, Z - 1], dtype=torch.float32)
+        u = torch.tensor([2.0, 1.0, 3.0]) + 0.05 + 0.9 * torch.rand((n, 3), generator=gen)
+        return (u / size * 2.0 - 1.0).to(dev)
+    p = torch.rand((n, 3), generator=gen) - 0.6
+    out = torch.rand(n, generator=gen) < 0.05
+    p[out] = torch.rand((int(out.sum()), 3), generator=gen) * 2.6 - 1.3
+    return (p * 0.5 if case == "coarse" else p).to(dev)
+
+
+def gs_grads(fn, grid, p, g, coords=True):
+    """(output, grid gradient, coordinate gradient or None) of ``fn``."""
+    gl = grid.detach().clone().requires_grad_()
+    pl = p.detach().clone().requires_grad_(coords)
+    out = fn(gl, pl)
+    grads = torch.autograd.grad(out, (gl, pl) if coords else (gl,), g)
+    return out.detach(), grads[0], (grads[1] if coords else None)
+
+
+def check_grid_sample(dev):
+    """The grid-sample kernels against the plain ops at the mapping shapes:
+    output, grid gradient and coordinate gradient the plain version's bit for
+    bit, the same bits on a second run, the counters; device times of the
+    kernels, the plain ops and PyTorch's sorted index backward (``flat[idx]``'s,
+    the yardstick the port no longer calls) beside the op's byte bound; the
+    memory autograd keeps for the backward."""
+    op, plain = grid_sample.sample_grid_trilinear, grid_sample.sample_grid_trilinear_plain
+    gen = torch.Generator().manual_seed(SEED + 18)
+    res = {}
+    for case, shape in GS_SHAPES.items():
+        grid = torch.randn((*shape, GS_C), generator=gen).to(dev)
+        p = gs_points(case, gen, dev)
+        g = torch.randn((GS_POINTS, GS_C), generator=gen).to(dev)
+        n, cells = GS_POINTS, grid[..., 0].numel()
+        counts = (op.launches, op.grid_bwd_launches, op.coord_bwd_launches, op.scattered)
+        TRACER.enable()
+        scattered = TRACER.count["slam.grid.scattered"]
+        out, dg, dp = gs_grads(op, grid, p, g)
+        torch.cuda.synchronize()
+        TRACER.disable()
+        counted = [op.launches - counts[0], op.grid_bwd_launches - counts[1],
+                   op.coord_bwd_launches - counts[2], op.scattered - counts[3],
+                   TRACER.count["slam.grid.scattered"] - scattered]
+        _, dg2, dp2 = gs_grads(op, grid, p, g)
+        repeat = torch.equal(dg, dg2) and torch.equal(dp, dp2)
+        ref_out, ref_dg, ref_dp = gs_grads(plain, grid, p, g)
+        torch.cuda.synchronize()
+        errs = {"forward_bitwise": torch.equal(out, ref_out),
+                "grid_grad_bitwise": torch.equal(dg, ref_dg),
+                "coord_grad_bitwise": torch.equal(dp, ref_dp),
+                "grid_grad_max_abs_diff": float((dg - ref_dg).abs().max()),
+                "coord_grad_max_abs_diff": float((dp - ref_dp).abs().max())}
+        del dg2, dp2
+        # memory autograd keeps from the forward to the backward (the mapper's
+        # case: the grid needs its gradient, the points do not), and times
+        kept = {}
+        for name, fn in (("kernel", op), ("plain", plain)):
+            gl = grid.clone().requires_grad_()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            o = fn(gl, p)
+            torch.cuda.synchronize()
+            kept[name] = torch.cuda.memory_allocated() - before - o.numel() * 4
+            del o, gl
+        gl = grid.clone().requires_grad_()
+        pl = p.clone().requires_grad_()
+        flat_idx = plain_corner_index(grid, p)
+        contrib = torch.randn((8 * n, GS_C), generator=gen).to(dev)
+        with torch.no_grad():
+            ms = {"fwd": cuda_ms(lambda: op(grid, p), 20),
+                  "plain_fwd": cuda_ms(lambda: plain(grid, p), 20)}
+        ms["fwd_bwd_grid"] = cuda_ms(lambda: torch.autograd.grad(op(gl, p), gl, g), 20)
+        ms["plain_fwd_bwd_grid"] = cuda_ms(
+            lambda: torch.autograd.grad(plain(gl, p), gl, g), 10)
+        ms["fwd_bwd_both"] = cuda_ms(lambda: torch.autograd.grad(op(gl, pl), (gl, pl), g), 20)
+        ms["plain_fwd_bwd_both"] = cuda_ms(
+            lambda: torch.autograd.grad(plain(gl, pl), (gl, pl), g), 10)
+        ms["grid_bwd"] = cuda_ms(
+            lambda: grid_sample.launch_grid_sample_grid_bwd(grid.shape, p, g), 20)
+        ms["coord_bwd"] = cuda_ms(
+            lambda: grid_sample.launch_grid_sample_coord_bwd(grid, p, g), 20)
+        ms["library_ms"] = cuda_ms(lambda: grid.new_zeros((cells, GS_C)).index_put_(
+            (flat_idx,), contrib, accumulate=True), 10)
+        rows = int(torch.unique(flat_idx).numel()) * GS_C * 4
+        bound = {"fwd": (12 * n + rows + 4 * n * GS_C) / PEAK_BYTES_S * 1e3,
+                 "grid_bwd": (12 * n + 4 * n * GS_C + 4 * cells * GS_C) / PEAK_BYTES_S * 1e3,
+                 "coord_bwd": (12 * n + rows + 4 * n * GS_C + 12 * n) / PEAK_BYTES_S * 1e3}
+        res[case] = {
+            "shape": [*shape, GS_C], "points": n, "distinct_vertices": rows // (GS_C * 4),
+            "backward_repeats_bitwise": repeat, **errs, "counted": counted, "kept_bytes": kept,
+            "ms": ms, "bound_ms": bound}
+        say(f"grid sample {case}: " + json.dumps(res[case]))
+        del grid, p, g, out, dg, dp, ref_out, ref_dg, ref_dp, gl, pl, flat_idx, contrib
+    failed = []
+    for case, r in res.items():
+        for what in ("forward", "grid_grad", "coord_grad"):
+            if not r[f"{what}_bitwise"]:
+                failed.append(f"grid sample {case}: {what} differs from the plain version's")
+        if not r["backward_repeats_bitwise"]:
+            failed.append(f"grid sample {case}: a second backward gave other bits")
+        if r["counted"] != [1, 1, 1, 8 * GS_POINTS, 8 * GS_POINTS]:
+            failed.append(f"grid sample {case}: counted {r['counted']}, expected "
+                          f"[1, 1, 1, {8 * GS_POINTS}, {8 * GS_POINTS}]")
+    if failed:
+        raise RuntimeError("; ".join(failed))
+    return res
+
+
+def plain_corner_index(grid, p):
+    """The 8N flat vertex indices the plain version gathers (corner-major)."""
+    Z, Y, X, _ = grid.shape
+    ux, uy, uz = grid_sample._unnormalize(p, Z, Y, X)
+    x0, y0, z0 = (torch.floor(u).long() for u in (ux, uy, uz))
+    x1, y1, z1 = (torch.clamp(a + 1, max=m - 1) for a, m in ((x0, X), (y0, Y), (z0, Z)))
+    return torch.cat([(zi * Y + yi) * X + xi for zi in (z0, z1) for yi in (y0, y1)
+                      for xi in (x0, x1)])
+
+
 def make_frame(cam, bound_t, dev):
     """A Replica-shaped frame from a seed: the depth image is what the
     camera sees of a box 0.9 times the scene bound (so every surface lies
@@ -680,13 +830,24 @@ def plain_decode():
 
 
 def reset_launches():
+    """Set the decode kernels' and the grid-sample kernels' launch counters to 0."""
     fused_decode.fused_decode_packed.launches = 0
     fused_decode.fused_decode_packed.bwd_launches = 0
+    op = grid_sample.sample_grid_trilinear
+    op.launches = op.grid_bwd_launches = op.coord_bwd_launches = 0
 
 
 def launches():
+    """The decode kernels' (forward, backward) launches."""
     return (fused_decode.fused_decode_packed.launches,
             fused_decode.fused_decode_packed.bwd_launches)
+
+
+def grid_launches():
+    """The grid-sample kernels' (forward, grid gradient, coordinate gradient)
+    launches: the mapper's trilinear sample on the card."""
+    op = grid_sample.sample_grid_trilinear
+    return [op.launches, op.grid_bwd_launches, op.coord_bwd_launches]
 
 
 def check_pose_gradient(mp, decoders, packed, bound_t, dev):
@@ -1271,15 +1432,18 @@ def mapping_card_vs_cpu(mapper, grids, decoders, f, pose, dev):
     with the same draws (within the limits). Then the CPU call again with
     each of MAP_FAULTS planted: each must lie outside the limits."""
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     card = steady_call(mapper, grids, decoders, f, pose, dev)
     torch.cuda.synchronize()
     card_ms = 1e3 * (time.perf_counter() - t0)
     again = steady_call(mapper, grids, decoders, f, pose, dev)
+    grid_card = grid_launches()
     t0 = time.perf_counter()
     cpu = steady_call(mapper, grids, decoders, f, pose, torch.device("cpu"))
     cpu_ms = 1e3 * (time.perf_counter() - t0)
     torch.cuda.synchronize()
+    grid_cpu = [a - b for a, b in zip(grid_launches(), grid_card)]
     pairs = list(zip(_leaves(card), _leaves(again)))
     bitwise = all(torch.equal(a, b) for (_, a), (_, b) in pairs if isinstance(a, torch.Tensor))
     run_to_run = max(float((a.double() - b.double()).abs().max())
@@ -1292,6 +1456,7 @@ def mapping_card_vs_cpu(mapper, grids, decoders, f, pose, dev):
     res = {"iters": MAP_CHECK_ITERS, "K": card["K"], "BA": mapper.BA_active,
            "card_vs_cpu": sound, "card_ms": card_ms, "cpu_ms": cpu_ms,
            "card_vs_card_bitwise_equal": bitwise, "card_vs_card_max_abs_diff": run_to_run,
+           "grid_sample_launches_card": grid_card, "grid_sample_launches_cpu": grid_cpu,
            "card_vs_faulty_cpu": faults,
            "limits": {"loss_rtol": MAP_LOSS_RTOL, "leaf_update_rel": MAP_UPDATE_REL,
                       "pose_atol": MAP_POSE_ATOL}}
@@ -1300,6 +1465,9 @@ def mapping_card_vs_cpu(mapper, grids, decoders, f, pose, dev):
     failed = []
     if not bitwise:
         failed.append(f"two identical card calls differ (max abs {run_to_run:.3e})")
+    if not (all(grid_card[:2]) and not any(grid_cpu)):
+        failed.append(f"the grid-sample kernels launched {grid_card} times in the card calls "
+                      f"and {grid_cpu} in the CPU call")
     if not (math.isfinite(float(card["loss"])) and within(sound)):
         failed.append(f"the card disagrees with the CPU: {sound}")
     caught = [k for k, v in faults.items() if not within(v)]
@@ -1420,6 +1588,7 @@ def pipeline_from_disk(frag, dev, ate_in_memory):
     torch.cuda.synchronize()
     tail_s = time.perf_counter() - t0
     n_fwd, n_bwd = launches()
+    grid_n = grid_launches()
     tcfg = slam.t_cfg
     want_launches = sum(tcfg.iters * (2 if i % tcfg.rgbd_every_frame == 0 else 1)
                         for i in range(1, n_img))
@@ -1448,6 +1617,7 @@ def pipeline_from_disk(frag, dev, ate_in_memory):
            "window_frame_25": window, "BA_frame_25": ba, "end_of_sequence_s": tail_s,
            "mapping_calls": slam.mapping_cnt,
            "fwd_launches": n_fwd, "bwd_launches": n_bwd, "expected_launches": want_launches,
+           "grid_sample_launches": grid_n,
            "syncs_in_steady_block": len(syncs), "sync_sites": sorted(set(syncs))[:6],
            "peak_memory_gib": peak, "checkpoint_bitwise": same, "checkpoint_s": ckpt_s,
            "host_dispatch": host_dispatch(slam)}
@@ -1461,6 +1631,9 @@ def pipeline_from_disk(frag, dev, ate_in_memory):
     if not (n_fwd > 0 and n_bwd > 0 and n_fwd == n_bwd == want_launches):
         failed.append(f"the pipeline launched the decode kernels {n_fwd} / {n_bwd} times, "
                       f"expected {want_launches} each")
+    if not all(grid_n):
+        failed.append(f"the mapper launched the grid-sample kernels {grid_n} times (forward, "
+                      "grid gradient, coordinate gradient)")
     if not (window == 5 and ba):
         failed.append("the mapping call of frame 25 did not run at K = 5 with BA")
     if syncs:
@@ -1537,10 +1710,12 @@ def pipeline_every_frame(frag, dev):
     ate, held, err, slam = run_pipeline(frag, dev, 1, plant=plant, mesh=True)
     torch.cuda.synchronize()
     n_fwd, n_bwd = launches()
+    grid_n = grid_launches()
     want = 2 * slam.t_cfg.iters * (MAP_FRAMES - 1)
     res = {"frames": MAP_FRAMES, "ate_rmse_m": ate, "held_camera_rmse_m": held,
            "err_mm_per_frame": err, "keyframes": slam.mapper.keyframes.indices,
            "n_fast_maps": slam.n_fast_maps, "fwd_launches": n_fwd, "bwd_launches": n_bwd,
+           "grid_sample_launches": grid_n,
            "run_s": time.perf_counter() - t0,
            "meshing_s": sum(r["total_s"] for r in mesh_recs)}
     say("pipeline from disk, RGB-D + event on every frame (EvenNICERSLAM.run, with its "
@@ -1550,6 +1725,9 @@ def pipeline_every_frame(frag, dev):
         failed.append(f"ATE {ate:.4f} m is not below the held camera's {held:.4f} m")
     if (n_fwd, n_bwd) != (want, want):
         failed.append(f"the decode kernels launched {n_fwd} / {n_bwd} times, expected {want}")
+    if not all(grid_n[:2]):
+        failed.append(f"the mapper launched the grid-sample kernels {grid_n} times (forward, "
+                      "grid gradient, coordinate gradient)")
     if [r["mesh"] for r in mesh_recs] != ["final_mesh.ply", "final_mesh_eval_rec.ply"]:
         failed.append(f"run() wrote the meshes {[r['mesh'] for r in mesh_recs]}")
     return ([f"pipeline from disk, RGB-D every frame: {f}" for f in failed], res,
@@ -2831,8 +3009,8 @@ def groups_and_viewer(frag, dev, mp, decoders, packed, bound_t, steady_state):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="build the kernel and check it against its plain "
-                         "version, then stop (prints no result line)")
+                    help="build the kernels and check them against their plain "
+                         "versions, then stop (prints no result line)")
     opts = ap.parse_args()
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2856,11 +3034,11 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build_all(["fused_decode", "fused_decode_bwd"])  # side by side
+    cuda_build.build_all(["fused_decode", "fused_decode_bwd", "grid_sample"])  # side by side
     lib = fused_decode.kernel_library()
     lib_b = fused_decode.bwd_kernel_library()
     build_s = time.perf_counter() - t0
-    say(f"built both kernels in {build_s:.1f} s (set-up)")
+    say(f"built the three kernel libraries in {build_s:.1f} s (set-up)")
     lap("1-2 device, build")
     ptxas = {}
     for name, warps, points, smem in (
@@ -2869,13 +3047,15 @@ def main():
             ("fused_decode_bwd", lib_b.fused_decode_bwd_warps(),
              lib_b.fused_decode_bwd_warp_points(), lib_b.fused_decode_bwd_smem_bytes())):
         log = cuda_build.BUILD_LOG[name]
-        ptxas[name] = {"warps": warps, "points_per_warp": points, "smem_bytes": smem,
-                       **cuda_build.ptxas_usage(str(log["ptxas"]))}
+        ptxas[name] = cuda_build.ptxas_usage(str(log["ptxas"]))
+        ptxas[name].update(warps=warps, points_per_warp=points, smem_bytes=smem)
         say(f"  {log['lib']}: {float(log['seconds']):.1f} s; {warps} warps a block, "
             f"{points} points a warp tile, {smem} B of shared memory per block")
-        for line in str(log["ptxas"]).splitlines():
-            if "registers" in line or "spill" in line or "warning" in line.lower():
-                say("    ptxas: " + line.strip())
+        say_ptxas(log)
+    log = cuda_build.BUILD_LOG["grid_sample"]
+    ptxas["grid_sample"] = cuda_build.ptxas_usage(str(log["ptxas"]))
+    say(f"  {log['lib']}: {float(log['seconds']):.1f} s")
+    say_ptxas(log)
 
     # ---- 3. the kernel against its plain version ---------------------------
     cfg, grids, decoders, packed = make_scene(dev)
@@ -2889,10 +3069,14 @@ def main():
                                  iters=20, plain_iters=5)
     bwd_main = check_bwd_kernel(decoders, packed, bound_t, N_MAIN, dev,
                                 iters=3 if opts.quick else 5, plain_iters=2)
+    lap("3 kernels vs plain")
+
+    # ---- 3b. the mapper's grid sample against the plain ops ------------------
+    gs_res = check_grid_sample(dev)
+    lap("3b grid sample")
     if opts.quick:
         say(f"quick check done in {time.perf_counter() - t_start:.1f} s")
         return
-    lap("3 kernels vs plain")
 
     # ---- 4. the main path: tracking_loss at full width ---------------------
     mp = main_path_inputs(cfg, bound_t, dev)
@@ -3052,6 +3236,12 @@ def main():
         cfg, mp, dev, m_frames[:MAP_TRACK_FRAMES], tcfg, "bench schedule, RGB-D every 5th",
         lambda held: ATE_BENCH_BAR)
     launches_map_fwd, launches_map_bwd = launches()
+    grid_map = grid_launches()
+    say(f"map and track: grid-sample launches (forward, grid gradient, coordinate gradient) "
+        f"{grid_map}")
+    if not all(grid_map[:2]):
+        failed.append(f"map and track: the mapper launched the grid-sample kernels {grid_map} "
+                      "times (forward, grid gradient, coordinate gradient)")
     if failed:
         say("map and track FAILED: " + "; ".join(failed))
     lap("10 map and track")
@@ -3175,6 +3365,24 @@ def main():
         "pose_gradient_vs_plain": grad_res,
         "tracked_frame_vs_plain": kp_res,
         "self_consistent_frame": self_res,
+    }, {
+        "name": "grid_sample",
+        "route": "cuda",
+        "source": "evennicer_slam_tpu_torch/csrc/grid_sample.cu",
+        "replaces": None,
+        "n_points": GS_POINTS,
+        "launches": [a + b + c + d for a, b, c, d in zip(
+            grid_map, cpu_res["grid_sample_launches_card"], pipe_res["grid_sample_launches"],
+            every_res["grid_sample_launches"])],
+        "launches_map_and_track": grid_map,
+        "launches_steady_call": cpu_res["grid_sample_launches_card"],
+        "launches_pipeline": [a + b for a, b in zip(pipe_res["grid_sample_launches"],
+                                                     every_res["grid_sample_launches"])],
+        "ms": {case: r["ms"] for case, r in gs_res.items()},
+        "bound_ms": {case: r["bound_ms"] for case, r in gs_res.items()},
+        "kept_bytes": {case: r["kept_bytes"] for case, r in gs_res.items()},
+        "design": GS_DESIGN,
+        **ptxas["grid_sample"],
     }]
     say("mapping: " + json.dumps({
         "bench_schedule": {k: v for k, v in bench_res.items() if k != "err_mm_per_frame"},

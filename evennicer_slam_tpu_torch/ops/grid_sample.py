@@ -5,11 +5,25 @@ Numerically equivalent to ``F.grid_sample(grid, vgrid,
 padding_mode='border', align_corners=True, mode='bilinear')`` on a
 ``[1, C, Z, Y, X]`` grid, but with the channels-last layout ``[Z, Y, X, C]``
 the JAX package uses, so each corner lookup is a contiguous [C]-vector row.
+
+On CUDA tensors the trilinear sample is one autograd function with a CUDA
+kernel each way (``csrc/grid_sample.cu``): the forward reads the corner rows
+from the grid and keeps only the points for the backward; the grid gradient
+sums the stably sorted (point, corner) pairs a vertex, with no atomics; the
+coordinate gradient re-reads the corners. Output and both gradients are
+:func:`sample_grid_trilinear_plain`'s on the card bit for bit: the kernels
+repeat its autograd chain's operations in its order. On CPU tensors it is
+that plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+from torch.autograd.function import once_differentiable
+
+from evennicer_slam_tpu_torch.utils.telemetry import TRACER
 
 
 def _unnormalize(p_nor: torch.Tensor, Z: int, Y: int, X: int):
@@ -21,22 +35,13 @@ def _unnormalize(p_nor: torch.Tensor, Z: int, Y: int, X: int):
     return ux, uy, uz
 
 
-def sample_grid_trilinear(
+def sample_grid_trilinear_plain(
     grid: torch.Tensor,
     p_nor: torch.Tensor,
     mode: str = "bilinear",
 ) -> torch.Tensor:
-    """Sample a feature grid at normalized coordinates.
-
-    Args:
-        grid:  [Z, Y, X, C] feature grid.
-        p_nor: [N, 3] coordinates in [-1, 1], ordered (x, y, z) — x indexes
-               the X axis, etc. Out-of-range coords clamp to the border.
-        mode:  'bilinear' (trilinear) or 'nearest'.
-
-    Returns:
-        [N, C] sampled features.
-    """
+    """:func:`sample_grid_trilinear` in plain PyTorch ops, on any device:
+    eight row gathers and seven lerps, differentiated by autograd."""
     Z, Y, X, C = grid.shape
     ux, uy, uz = _unnormalize(p_nor, Z, Y, X)
     flat = grid.reshape(-1, C)
@@ -76,6 +81,189 @@ def sample_grid_trilinear(
     c0 = c00 * (1 - fy) + c01 * fy
     c1 = c10 * (1 - fy) + c11 * fy
     return c0 * (1 - fz) + c1 * fz
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels and their wrappers
+# ---------------------------------------------------------------------------
+
+def declare_signatures(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a library built from
+    ``csrc/grid_sample.cu`` (pointers and the stream as ``c_void_p``)."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.grid_sample_fwd.argtypes = [vp, vp] + [i32] * 4 + [i64, vp, vp]
+    lib.grid_sample_keys.argtypes = [vp] + [i32] * 3 + [i64, vp, vp]
+    lib.grid_sample_grid_bwd.argtypes = [vp] * 4 + [i64] + [i32] * 4 + [i64] + [vp] * 2
+    lib.grid_sample_coord_bwd.argtypes = [vp] * 3 + [i64] + [i32] * 4 + [i64, vp, vp]
+    for fn in (lib.grid_sample_fwd, lib.grid_sample_keys, lib.grid_sample_grid_bwd,
+               lib.grid_sample_coord_bwd):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def kernel_library() -> ctypes.CDLL:
+    """The compiled kernels (built from ``csrc/grid_sample.cu`` on first use,
+    loaded once per process) with their C signatures declared."""
+    from evennicer_slam_tpu_torch.ops.cuda_build import load_kernel_library
+
+    return declare_signatures(load_kernel_library("grid_sample"))
+
+
+def _launch(name: str, fn, *args) -> None:
+    """Call a launcher of the library on the current stream of the points'
+    device; raise if the launch failed."""
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def _cotangent(grad_out: torch.Tensor) -> torch.Tensor:
+    """The output's cotangent as rows of unit stride (it may arrive as a
+    strided slice of a concatenation's cotangent, or expanded)."""
+    if grad_out.stride(-1) != 1 or grad_out.stride(0) < grad_out.shape[-1]:
+        grad_out = grad_out.contiguous()
+    return grad_out
+
+
+def launch_grid_sample_fwd(grid: torch.Tensor, p_nor: torch.Tensor) -> torch.Tensor:
+    """The forward kernel: ``grid`` [Z, Y, X, C] and ``p_nor`` [N, 3] float32,
+    contiguous, on one CUDA device -> [N, C]. No synchronisation."""
+    Z, Y, X, C = grid.shape
+    n = p_nor.shape[0]
+    out = torch.empty((n, C), dtype=torch.float32, device=p_nor.device)
+    _launch("grid_sample_fwd", kernel_library().grid_sample_fwd,
+            grid.data_ptr(), p_nor.data_ptr(), Z, Y, X, C, n, out.data_ptr())
+    if n > 0:
+        sample_grid_trilinear.launches += 1
+    return out
+
+
+def launch_grid_sample_grid_bwd(shape, p_nor: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The grid gradient ``[Z, Y, X, C]`` of the sample at ``p_nor`` for the
+    cotangent ``g`` [N, C] (rows of unit stride): the 8N (point, corner) keys,
+    a stable sort, the sums a vertex in the plain version's order. The plain
+    version's bits, on every run."""
+    Z, Y, X, C = shape
+    n = p_nor.shape[0]
+    dev = p_nor.device
+    lib = kernel_library()
+    keys = torch.empty(8 * n, dtype=torch.int32, device=dev)
+    _launch("grid_sample_keys", lib.grid_sample_keys,
+            p_nor.data_ptr(), Z, Y, X, n, keys.data_ptr())
+    skeys, perm = torch.sort(keys, stable=True)
+    dgrid = torch.empty((Z, Y, X, C), dtype=torch.float32, device=dev)
+    _launch("grid_sample_grid_bwd", lib.grid_sample_grid_bwd,
+            skeys.data_ptr(), perm.data_ptr(), p_nor.data_ptr(), g.data_ptr(), g.stride(0),
+            Z, Y, X, C, n, dgrid.data_ptr())
+    sample_grid_trilinear.grid_bwd_launches += 1
+    sample_grid_trilinear.scattered += 8 * n
+    TRACER.add("slam.grid.scattered", 8 * n)
+    return dgrid
+
+
+def launch_grid_sample_coord_bwd(grid: torch.Tensor, p_nor: torch.Tensor,
+                                 g: torch.Tensor) -> torch.Tensor:
+    """The gradient [N, 3] to ``p_nor`` for the cotangent ``g`` [N, C]."""
+    Z, Y, X, C = grid.shape
+    n = p_nor.shape[0]
+    dp = torch.empty((n, 3), dtype=torch.float32, device=p_nor.device)
+    _launch("grid_sample_coord_bwd", kernel_library().grid_sample_coord_bwd,
+            grid.data_ptr(), p_nor.data_ptr(), g.data_ptr(), g.stride(0), Z, Y, X, C, n,
+            dp.data_ptr())
+    if n > 0:
+        sample_grid_trilinear.coord_bwd_launches += 1
+    return dp
+
+
+class _TrilinearSample(torch.autograd.Function):
+    """One kernel forward; the backward launches the grid gradient's and the
+    coordinate gradient's kernels, each only where its input needs it. The
+    backward keeps the points (12 B a point) and recomputes each point's cell
+    and fractions with the forward's own arithmetic (fractions alone would
+    lose which coordinates were clamped at the border); the grid is kept only
+    for the coordinate gradient. A call where neither input needs a gradient
+    keeps nothing."""
+
+    @staticmethod
+    def forward(ctx, grid, p_nor):
+        need_grid, need_p = ctx.needs_input_grad
+        if need_grid or need_p:
+            ctx.save_for_backward(p_nor, grid if need_p else None)
+            ctx.shape = tuple(grid.shape)
+        return launch_grid_sample_fwd(grid, p_nor)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        p_nor, grid = ctx.saved_tensors
+        g = _cotangent(grad_out)
+        with torch.cuda.device(p_nor.device):
+            dgrid = (launch_grid_sample_grid_bwd(ctx.shape, p_nor, g)
+                     if ctx.needs_input_grad[0] else None)
+            dp = (launch_grid_sample_coord_bwd(grid, p_nor, g)
+                  if ctx.needs_input_grad[1] else None)
+        return dgrid, dp
+
+
+def _check_kernel_args(grid: torch.Tensor, p_nor: torch.Tensor) -> None:
+    dev = p_nor.device
+    if dev.type != "cuda":
+        raise ValueError(f"the grid-sample kernels need CUDA tensors, got {dev}")
+    if grid.device != dev:
+        raise ValueError(f"grid on {grid.device}, points on {dev}")
+    for name, t in (("grid", grid), ("p_nor", p_nor)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: dtype {t.dtype}, the kernels take float32")
+    if grid.dim() != 4 or p_nor.shape[-1] != 3:
+        raise ValueError(f"grid {tuple(grid.shape)} / points {tuple(p_nor.shape)}: "
+                         "expected [Z, Y, X, C] and [..., 3]")
+    Z, Y, X, C = grid.shape
+    if not 0 < 8 * Z * Y * X < 2**31 or not 0 < C <= 128:
+        raise ValueError(f"a grid of {Z}x{Y}x{X} cells of {C} channels: the kernels take "
+                         "fewer than 2**28 cells and 1 to 128 channels")
+    if 8 * p_nor[..., 0].numel() >= 2**31:
+        raise ValueError(f"{p_nor[..., 0].numel()} points: 8 keys a point need int32")
+
+
+def sample_grid_trilinear(
+    grid: torch.Tensor,
+    p_nor: torch.Tensor,
+    mode: str = "bilinear",
+) -> torch.Tensor:
+    """Sample a feature grid at normalized coordinates.
+
+    Args:
+        grid:  [Z, Y, X, C] feature grid.
+        p_nor: [N, 3] coordinates in [-1, 1], ordered (x, y, z) — x indexes
+               the X axis, etc. Out-of-range coords clamp to the border.
+        mode:  'bilinear' (trilinear) or 'nearest'.
+
+    Returns:
+        [N, C] sampled features.
+
+    CPU tensors, and ``mode='nearest'``, go through
+    :func:`sample_grid_trilinear_plain`. A trilinear sample on CUDA tensors
+    (float32) goes through the kernels, forward and backward, or the call
+    raises. ``sample_grid_trilinear.launches`` counts forward kernel launches,
+    ``.grid_bwd_launches`` grid gradients (keys, sort and segmented sum),
+    ``.coord_bwd_launches`` coordinate gradients (neither launches for no
+    points; a grid gradient then still writes its zeros), and ``.scattered`` the
+    (point, corner) contributions the grid gradients summed (also the
+    tracer's counter ``slam.grid.scattered``)."""
+    if mode != "bilinear" or p_nor.device.type == "cpu":
+        return sample_grid_trilinear_plain(grid, p_nor, mode)
+    _check_kernel_args(grid, p_nor)
+    lead = p_nor.shape[:-1]
+    pts = p_nor.reshape(-1, 3).contiguous()
+    with torch.cuda.device(pts.device):
+        out = _TrilinearSample.apply(grid.contiguous(), pts)
+    return out.reshape(*lead, grid.shape[-1])
+
+
+sample_grid_trilinear.launches = 0
+sample_grid_trilinear.grid_bwd_launches = 0
+sample_grid_trilinear.coord_bwd_launches = 0
+sample_grid_trilinear.scattered = 0
 
 
 # ---------------------------------------------------------------------------
